@@ -1,4 +1,4 @@
-"""rtm_tpu — a TPU-native, differentiable, progressive path tracer.
+"""rtm_tpu — a differentiable, progressive path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 Ray-Tracing-Machine reference engine (see SURVEY.md): camera rays with

@@ -1,7 +1,7 @@
 """CLI entry — `python -m rtm_tpu <command>`.
 
 The reference's startup chain (EntryPoint.h:6-9 -> Startup.cpp:18-52)
-launches a windowed app; the TPU-native framework is headless-first, so the
+launches a windowed app; this framework is headless-first, so the
 entry point is a CLI (SURVEY C1):
 
   render    render a scene to PNG (progressive accumulation)
@@ -32,15 +32,11 @@ def _add_render_args(p):
     p.add_argument("--no-environment", action="store_true",
                    help="disable sky lighting (DrawEnvironment=0)")
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "xla", "pallas", "mxu", "trav",
-                            "megakernel", "wavefront2"])
+                   choices=["auto", "xla", "triton"],
+                   help="nearest-triangle search: the Triton kernel "
+                        "(GPU) or the XLA sweep; auto picks by platform")
     p.add_argument("--platform", default=None,
                    help="force jax platform (e.g. cpu)")
-    p.add_argument("--debug", type=int, default=0,
-                   help="debug visualization (ref Debug uniform, "
-                        "RayTracing.cpp:130-133): 1 = cluster-passes "
-                        "heatmap (cull effectiveness, the analog of the "
-                        "shader's BVH-depth views)")
     p.add_argument("--env", default="map", choices=("map", "sun"),
                    help="environment model: equirect sky map, or the "
                         "legacy kernel's procedural sun/sky "
@@ -57,7 +53,8 @@ def _setup(args, want_host_scene: bool = False):
         jax.config.update("jax_platforms", args.platform)
     from rtm_tpu import (Camera, RenderConfig, build_tracer_scene,
                          load_scene)
-    backend = args.backend
+    from rtm_tpu.ops.trace_ref import resolve_backend
+    backend = resolve_backend(args.backend)
     cfg = RenderConfig(width=args.width, height=args.height,
                        max_bounces=args.bounces, max_frames=args.spp,
                        draw_environment=not args.no_environment)
@@ -70,10 +67,6 @@ def _setup(args, want_host_scene: bool = False):
     else:
         host = load_scene(args.scene)
     scene = build_tracer_scene(host, env_model=getattr(args, "env", "map"))
-    if backend == "auto":
-        # per-scene fastest-known resolution (ops.trace_ref.auto_backend)
-        from rtm_tpu.ops.trace_ref import auto_backend
-        backend = auto_backend(scene, jax.devices()[0].platform)
     if want_host_scene:
         return scene, cam, cfg, backend, host
     return scene, cam, cfg, backend
@@ -86,36 +79,6 @@ def cmd_render(args) -> int:
     from rtm_tpu.runtime.renderer import render_progressive
 
     scene, cam, cfg, backend = _setup(args)
-    if getattr(args, "debug", 0):
-        # debug visualization (reference Debug uniform feeding BVH-depth /
-        # box heatmaps, RayTracing.cpp:130-133, RayTracing.shader:345-374):
-        # mode 1 renders the cluster-passes-per-ray heatmap — the direct
-        # measure of tile-uniform cull effectiveness.
-        import jax.numpy as jnp
-
-        import jax
-
-        from rtm_tpu.ops.pallas.megakernel import pixel_to_slot, use_block8
-        from rtm_tpu.ops.wavefront2 import render_rays_wavefront2
-        _, passes = render_rays_wavefront2(
-            scene, cam.spec(cfg.width, cfg.height), jnp.uint32(1), cfg,
-            pixel_offset=jnp.int32(0), n_rays=cfg.num_pixels,
-            debug_passes=True,
-            interpret=(jax.devices()[0].platform != "tpu"))
-        passes = np.asarray(passes, np.float32)
-        if use_block8(cfg.width, cfg.height):
-            p = np.arange(cfg.num_pixels, dtype=np.int32)
-            passes = passes[np.asarray(pixel_to_slot(p, cfg.width))]
-        hm = passes.reshape(cfg.height, cfg.width)
-        mx = max(hm.max(), 1.0)
-        t = hm / mx
-        # blue (cheap) -> red (expensive) ramp
-        img = np.stack([t, 0.25 + 0.5 * np.abs(t - 0.5), 1.0 - t], axis=-1)
-        save_png(args.out, img[::-1])
-        print(f"wrote {args.out}  (debug={args.debug}: cluster-pass "
-              f"heatmap, max {int(hm.max())} passes over "
-              f"{cfg.max_bounces} bounces, mean {hm.mean():.1f})")
-        return 0
     if getattr(args, "check_nans", False):
         import jax.numpy as jnp
 
@@ -138,7 +101,7 @@ def cmd_render(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    """Delegates to the repo-root bench.py (one JSON line, driver format)."""
+    """Delegates to the repo-root bench.py (one JSON line)."""
     import os
     import runpy
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -237,7 +200,7 @@ def cmd_optimize(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="rtm_tpu",
-        description="TPU-native differentiable progressive path tracer")
+        description="differentiable progressive path tracer")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("render", help="render a scene to PNG")
@@ -281,6 +244,8 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_optimize)
 
     args = parser.parse_args(argv)
+    from rtm_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -269,8 +269,7 @@ def _build_python(mesh: Mesh) -> BVH:
 class BvhScene:
     """Concatenated per-mesh BVHs + reordered triangles + instance wrappers —
     the exact GPU buffer layout the reference binds (SURVEY C25).  Used by
-    the traversal validation path (ops/bvh_traverse) and by cluster
-    construction for the Pallas kernel."""
+    the traversal validation path (ops/bvh_traverse)."""
 
     box_min: np.ndarray          # (B,3)
     box_max: np.ndarray          # (B,3)

@@ -5,7 +5,7 @@ RayTracing/src/RayTracing.cpp:942-954) — parameter names and default values
 match; the UI slider ranges become validation bounds.  The counts that the
 reference carries in the uniform (MaterialsCount, SpheresCount, ObjectsCount,
 TexturesCount — ref shader bindings RayTracing.shader:19-31) are *static* in
-the TPU build: XLA requires static shapes, so entity counts live on the scene
+this build: XLA requires static shapes, so entity counts live on the scene
 pytree as aux data and a re-jit happens on structural edits (the reference
 analogously reallocates buffers + rewrites descriptors on count changes,
 RayTracing.cpp:403-447).

@@ -20,85 +20,28 @@ import optax
 from ..config import RenderConfig
 from ..models.camera import CameraSpec
 from ..models.scene import TracerScene
-from ..ops.trace_ref import render_dispatch
+from ..ops.trace_ref import render_dispatch, resolve_backend
 from .params import SceneParams, apply_params, extract_params
 
 
 @partial(jax.jit, static_argnames=("cfg", "backend", "remat",
-                                   "rebuild_tri_geometry", "soft_tau",
-                                   "bands"))
+                                   "rebuild_tri_geometry", "soft_tau"))
 def render_loss(params: SceneParams, scene: TracerScene, cam: CameraSpec,
-                target, frame_index, cfg: RenderConfig, backend: str = "xla",
+                target, frame_index, cfg: RenderConfig, backend: str = "auto",
                 remat: bool = True, rebuild_tri_geometry: bool = True,
-                soft_tau: float = 0.0, bands: int = 1):
+                soft_tau: float = 0.0):
     """Mean squared pixel error of a single dispatch against `target`.
 
+    backend: as render_dispatch.  With the Triton sweep the hit topology
+    comes from the kernel and every hit value is recomputed differentiably
+    from it (ops/trace_ref.bounce_payload), the same detached-topology
+    gradient the XLA sweep gives.
     soft_tau > 0 enables soft primary visibility (diff/silhouette.py):
     geometry gradients pick up the silhouette edge term the detached
     argmin drops, at the cost of a ~tau-wide soft edge band in the loss.
-
-    bands > 1 (wavefront2 only): evaluate the loss as a lax.scan over
-    `bands` contiguous dispatch-slot bands.  Numerically identical (the
-    per-band partial L2 sums are exact), but the fwd+bwd graph compiles
-    ONE band instead of the whole frame — the fix for the round-3
-    blocker where the 512^2 wavefront2 fwd+bwd compile exceeded the
-    10-minute remote-compile window (VERDICT r3 task 7).
     """
+    backend = resolve_backend(backend)
     full = apply_params(scene, params, rebuild_tri_geometry)
-    if backend.startswith("mxu"):
-        # the record-replay differentiable path (VERDICT r4 task 2): the
-        # fast mxu forward emits winner records, XLA replays the shading
-        # graph from them.  LOUD on unsupported configs — the r3 lesson:
-        # a grad backend must never silently reroute.
-        if soft_tau > 0.0:
-            raise ValueError(
-                "render_loss(backend='mxu'): soft primary visibility "
-                "(soft_tau) is not supported on the record-replay path; "
-                "use backend='xla'")
-        if cfg.max_bounces <= 1:
-            raise ValueError(
-                "render_loss(backend='mxu'): MaxBounces==1 flat-shade has "
-                "no mxu path; use backend='xla'")
-        mm = scene.mxu_meta
-        if mm is None or not mm.supported:
-            raise ValueError(
-                "render_loss(backend='mxu'): scene exceeds the mxu table "
-                "limits (<=2047 tris / <=128 materials/spheres); use "
-                "backend='wavefront2' or 'xla'")
-        from ..ops.trace_ref import render_mxu_replay
-        img = render_mxu_replay(full, cam, frame_index, cfg,
-                                interpret=backend.endswith("_interpret"),
-                                remat=remat)
-        return jnp.mean((img - target) ** 2)
-    if (bands > 1 and backend.startswith("wavefront2")
-            and cfg.max_bounces > 1 and soft_tau == 0.0):
-        from ..ops.pallas.megakernel import image_to_slots, use_block8
-        from ..ops.wavefront2 import render_rays_wavefront2
-        n = cfg.num_pixels
-        band = -(-n // bands)
-        if use_block8(cfg.width, cfg.height):
-            tgt = image_to_slots(target, cfg.width, cfg.height)
-        else:
-            tgt = target.reshape(-1, 3)
-        pad = band * bands - n
-        if pad:
-            tgt = jnp.concatenate([tgt, jnp.zeros((pad, 3), jnp.float32)])
-        mask = (jnp.arange(band * bands) < n).astype(jnp.float32)
-        offs = jnp.arange(bands, dtype=jnp.int32) * band
-
-        def body(acc, xs):
-            off, t_b, m_b = xs
-            img = render_rays_wavefront2(
-                full, cam, frame_index, cfg, pixel_offset=off,
-                n_rays=band,
-                interpret=backend.endswith("_interpret"))
-            return acc + jnp.sum(m_b[:, None] * (img - t_b) ** 2), None
-
-        loss, _ = jax.lax.scan(
-            body, jnp.float32(0.0),
-            (offs, tgt.reshape(bands, band, 3),
-             mask.reshape(bands, band)))
-        return loss / jnp.float32(n * 3)
     if soft_tau > 0.0:
         from ..ops.trace_ref import pixel_grid
         from .silhouette import render_soft_primary
@@ -116,7 +59,7 @@ def render_loss(params: SceneParams, scene: TracerScene, cam: CameraSpec,
 loss_and_grad = jax.jit(
     jax.value_and_grad(render_loss),
     static_argnames=("cfg", "backend", "remat", "rebuild_tri_geometry",
-                     "soft_tau", "bands"))
+                     "soft_tau"))
 
 
 @dataclass(frozen=True)
@@ -124,7 +67,7 @@ class InverseRenderConfig:
     steps: int = 100
     learning_rate: float = 2e-2
     remat: bool = True
-    backend: str = "xla"
+    backend: str = "auto"
     rebuild_tri_geometry: bool = True
     vary_seed: bool = True   # new RNG stream per step (stochastic gradients)
 

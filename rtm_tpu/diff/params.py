@@ -1,7 +1,7 @@
 """Differentiable scene parameterization.
 
-The reference has no gradients at all — this subsystem is the new surface the
-TPU build adds (BASELINE.md: pixel gradients w.r.t. material albedo /
+The reference has no gradients at all — this subsystem is the new surface this
+build adds (BASELINE.md: pixel gradients w.r.t. material albedo /
 roughness / emission and geometry sphere center / radius / vertex params).
 
 Design: `TracerScene` is already a pytree, but it mixes float leaves with
@@ -90,9 +90,11 @@ def apply_params(scene: TracerScene, p: SceneParams,
         # shader normal is R_w2l^-1 @ cross(R_w2l ab, R_w2l ac).
         rot = scene.tri_inv_model[:, :, :3]              # (T,3,3)
         off = scene.tri_inv_model[:, :, 3]               # (T,3)
-        la = jnp.einsum("tij,tj->ti", rot, a) + off
-        lab = jnp.einsum("tij,tj->ti", rot, ab)
-        lac = jnp.einsum("tij,tj->ti", rot, ac)
+        # full f32 (a default-precision f32 product may run in TF32)
+        hi = jax.lax.Precision.HIGHEST
+        la = jnp.einsum("tij,tj->ti", rot, a, precision=hi) + off
+        lab = jnp.einsum("tij,tj->ti", rot, ab, precision=hi)
+        lac = jnp.einsum("tij,tj->ti", rot, ac, precision=hi)
         n_local = jnp.cross(lab, lac)
         # model rotation = inv(rot): solve instead of transpose so
         # non-orthogonal (scaled) instances stay exact

@@ -117,12 +117,6 @@ def to_u8(img: np.ndarray) -> np.ndarray:
     return np.clip(np.round(np.asarray(img, np.float32) * 255.0), 0, 255).astype(np.uint8)
 
 
-def save_png(path, img: np.ndarray) -> None:
-    """Save (H,W,3) image. Accepts f32 [0,1] (quantized) or u8."""
-    if img.dtype != np.uint8:
-        img = to_u8(img)
-    from PIL import Image
-    Image.fromarray(img, "RGB").save(str(path))
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -141,6 +135,6 @@ def encode_png(img: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
-def save_png_pure(path, img: np.ndarray) -> None:
-    """Dependency-free PNG writer (fallback for hosts without PIL)."""
+def save_png(path, img: np.ndarray) -> None:
+    """Save an (H,W,3) image as PNG. Accepts f32 [0,1] (quantized) or u8."""
     Path(path).write_bytes(encode_png(img))

@@ -2,7 +2,7 @@
 
 The reference has no scene persistence: its editor state (materials, spheres,
 meshes, instances — RayTracing/src/RayTracing.cpp:164-463) lives only in RAM
-and is rebuilt from hardcoded loadScene cases on restart.  A headless TPU
+and is rebuilt from hardcoded loadScene cases on restart.  A headless
 editor needs durable scenes, so this module defines the framework's scene
 file format:
 

@@ -4,14 +4,14 @@ The host `Scene` mirrors ``RT::Scene`` + the client's sphere list (ref:
 Engine/src/Engine/Render/Scene.h:23-28, RayTracing/src/SceneWrapper.h:33-53).
 `build_tracer_scene` plays the role of the reference's SceneWrapper::build
 (SceneWrapper.cpp:10-46): it flattens meshes+instances into global GPU-layout
-arrays.  TPU-first difference: instead of shipping per-instance
+arrays.  One difference: instead of shipping per-instance
 world-to-local matrices and transforming rays per instance in the kernel
 (shader:526-532), we pre-transform each instanced triangle to world space on
 the host.  For an affine instance transform the ray-parameter t, the
 barycentrics and the hit acceptance are identical to the reference's
 local-space test (the reference does not re-normalize the transformed ray
 direction, so its t is already in world units); this turns the per-instance
-kernel loop into one dense SoA intersection sweep — the shape XLA/TPU wants.
+kernel loop into one dense SoA intersection sweep over all triangles.
 
 Reference quirks preserved exactly:
   * Hit normals: the shader computes cross(B-A, C-A) on the *local* vertices
@@ -110,42 +110,12 @@ class TracerScene:
     textures: jax.Array     # (K,TH,TW,3) f32 padded stack (Repeat/Linear)
     tex_size: jax.Array     # (K,2) i32 actual (H,W) per texture
     # quad-packed bilinear tables (ops/shade.py build_quad_flat): one row per
-    # texel holding the 2x2 footprint, so a bilinear tap is ONE TPU gather
-    # instead of four — the production fetch path (identical arithmetic to
-    # the 4-tap sample_bilinear).  f32: XLA's fast gather emitter handles
-    # f32 rows; a u8 variant was measured to fall off the fast path
-    # (hot-row taps 0.8 -> 10.2 ms).  Lanes that don't consume a sample
-    # are masked onto row 0 by every caller (latency-bound random rows).
+    # texel holding the 2x2 footprint, so a bilinear tap is one gather
+    # instead of four (identical arithmetic to the 4-tap sample_bilinear).
+    # Lanes that don't consume a sample are masked onto row 0 by every
+    # caller.
     sky_quads: jax.Array    # (Hs*Ws, 4) i32 packed / (.., 12) f32 fallback
     tex_quads: jax.Array    # (K*TH*TW, 4) i32 packed / (.., 12) f32
-
-    # static (non-pytree) metadata: does any material reference a texture?
-    # Kernels specialize on this (the megakernel's deferred-texture records
-    # are only emitted when true).
-    any_textured: bool = field(default=False, metadata=dict(static=True))
-
-    # static SAH-treelet cluster cut (accel/clusters.py): tuple of (lo, hi)
-    # triangle ranges, contiguous in the stored (permuted) triangle order.
-    # Empty tuple = no cut available; kernels fall back to fixed 128-wide
-    # slicing of the stored order.
-    cluster_slices: tuple = field(default=(), metadata=dict(static=True))
-
-    # per-lane traversal tables (ops/pallas/trav_kernel.py): a skip-link
-    # BVH over a SAH leaf cut + material/texture side tables, all shaped
-    # for tpu.dynamic_gather.  Host-built at scene build (data-dependent
-    # structure, not traceable); the diff/editor paths that mutate GEOMETRY
-    # rebuild the scene (runtime/editor.py), while pure material-value
-    # optimization keeps the topology valid.  None when not built;
-    # trav_meta.supported False when the scene exceeds the table limits.
-    trav_arrays: object = None
-    trav_meta: object = field(default=None, metadata=dict(static=True))
-
-    # MXU brute-force tables (ops/pallas/mxu_kernel.py, round 4): the
-    # Pluecker pair-test matmul rows + attribute gather chunks, in SCENE
-    # row order (no BVH permutation).  Same build/staleness contract as
-    # the trav tables; mxu_meta.supported False beyond <=2047 triangles.
-    mxu_arrays: object = None
-    mxu_meta: object = field(default=None, metadata=dict(static=True))
 
     # environment model: False = equirect sky map (shader:216-218); True =
     # the legacy kernel's procedural sun/sky (OldRayTracing.shader:119-136,
@@ -197,45 +167,12 @@ def _stack_textures(textures: list[np.ndarray]):
             quads.reshape(len(textures) * th * tw, qw))
 
 
-def _morton_order(wa: np.ndarray, wb: np.ndarray, wc: np.ndarray):
-    """Triangle permutation by 3-D Morton code of the world centroid.
-
-    Spatially-close triangles land in the same 128-wide cluster, which makes
-    the Pallas kernels' per-cluster AABBs tight and their tile-uniform
-    culling effective (SURVEY.md hard part #1).  Replaces the reference's
-    per-mesh BVH triangle reordering (BVH.cpp:63-75) as the TPU-shaped
-    spatial sort.  Note: changes which triangle wins *exact* distance ties
-    vs reference buffer order (measure-zero edge hits only).
-    """
-    t = wa.shape[0]
-    if t == 0:
-        return np.zeros((0,), np.int64)
-    cen = (wa + wb + wc) / 3.0
-    lo = cen.min(axis=0)
-    span = np.maximum(cen.max(axis=0) - lo, 1e-12)
-    q = np.clip(((cen - lo) / span * 1023.0), 0, 1023).astype(np.uint64)
-
-    def spread(x):
-        x = (x | (x << 16)) & np.uint64(0x030000FF)
-        x = (x | (x << 8)) & np.uint64(0x0300F00F)
-        x = (x | (x << 4)) & np.uint64(0x030C30C3)
-        x = (x | (x << 2)) & np.uint64(0x09249249)
-        return x
-
-    code = (spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1))
-            | (spread(q[:, 2]) << np.uint64(2)))
-    return np.argsort(code, kind="stable")
-
-
-def build_tracer_scene(scene: Scene, order: str = "bvh",
-                       cluster_max_tris: int = 128,
-                       env_model: str = "map") -> TracerScene:
+def build_tracer_scene(scene: Scene, env_model: str = "map") -> TracerScene:
     """Flatten the host scene into the device layout (SceneWrapper parity).
 
-    order: 'bvh' (default — SAH-BVH treelet cut, accel/clusters.py: the
-    production acceleration structure, tightest cluster AABBs), 'morton'
-    (global Morton sort, round-1 clustering) or 'buffer' (reference
-    traversal order, exact tie parity).
+    Triangles keep the reference's buffer order (instances in order, each
+    mesh's triangles in order), so exact distance ties resolve as in the
+    reference's traversal.
     """
     mats = Materials.from_list(scene.materials)
 
@@ -285,24 +222,6 @@ def build_tracer_scene(scene: Scene, order: str = "bvh",
     tri_mat = np.concatenate(mat) if mat else np.zeros((0,), np.int32)
     tri_inv_model = cat(invm, (0, 3, 4))
 
-    cluster_slices: tuple = ()
-    if order in ("bvh", "morton") and tri_wa.shape[0] > 1:
-        if order == "bvh":
-            from ..accel.clusters import bvh_cluster_slices
-            perm, cluster_slices = bvh_cluster_slices(
-                np.stack([tri_wa, tri_wb, tri_wc], axis=1),
-                max_tris=cluster_max_tris)
-        else:
-            perm = _morton_order(tri_wa, tri_wb, tri_wc)
-        tri_wa, tri_wb, tri_wc = tri_wa[perm], tri_wb[perm], tri_wc[perm]
-        tri_la, tri_lab, tri_lac = tri_la[perm], tri_lab[perm], tri_lac[perm]
-        tri_normal, tri_uv, tri_mat = tri_normal[perm], tri_uv[perm], tri_mat[perm]
-        tri_inv_model = tri_inv_model[perm]
-    elif order not in ("bvh", "morton", "buffer"):
-        raise ValueError(f"unknown triangle order {order!r}")
-
-    any_textured = any(int(m.texture_id) >= 0 for m in scene.materials)
-
     sky = scene.sky if scene.sky is not None else np.zeros((1, 1, 3), np.float32)
     textures, tex_size, tex_quads = _stack_textures(scene.textures)
 
@@ -311,21 +230,6 @@ def build_tracer_scene(scene: Scene, order: str = "bvh",
     sky_quads = build_quad_flat(
         sky_np, wrap="clamp",
         dtype=jnp.int32 if quad_exact_u8(sky_np) else jnp.float32)
-
-    # per-lane traversal structure (geometry tables + static meta) for the
-    # trav kernel; material/texture/sphere side tables are traced per
-    # dispatch so they never go stale under value optimization
-    from ..ops.pallas.mxu_kernel import build_mxu_tables
-    from ..ops.pallas.trav_kernel import build_trav_tables
-    tex_ids_np = np.array([m.texture_id for m in scene.materials],
-                          np.int32) if scene.materials else np.zeros(
-                              (0,), np.int32)
-    tt = build_trav_tables(
-        tri_wa, tri_wb, tri_wc, tri_normal, tri_mat,
-        tex_ids_np, mats.count, len(sph_pos))
-    mt = build_mxu_tables(
-        tri_wa, tri_wb, tri_wc, tri_normal, tri_mat,
-        tex_ids_np, mats.count, len(sph_pos))
 
     return TracerScene(
         materials=mats,
@@ -341,11 +245,5 @@ def build_tracer_scene(scene: Scene, order: str = "bvh",
         sky=jnp.asarray(sky, jnp.float32),
         textures=textures, tex_size=tex_size,
         sky_quads=sky_quads, tex_quads=tex_quads,
-        any_textured=any_textured,
-        cluster_slices=cluster_slices,
-        trav_arrays=jax.tree.map(jnp.asarray, tt.arrays),
-        trav_meta=tt.meta,
-        mxu_arrays=jax.tree.map(jnp.asarray, mt.arrays),
-        mxu_meta=mt.meta,
         env_sun=(env_model == "sun"),
     )

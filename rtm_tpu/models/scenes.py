@@ -171,9 +171,10 @@ def load_scene(n: int) -> Scene:
 
 def dragon_grid(k: int = 6) -> Scene:
     """A k x k grid of instanced Stanford dragons over the procedural sky —
-    the large-scene benchmark surface (BENCH_BIGSCENE_r05.json: the
-    O(T)-vs-O(log T) story beyond the mxu kernel's 2047-triangle table
-    range).  ~1742 world-baked triangles per instance; k=6 ~ 62.7k tris.
+    the large-scene surface where an O(T) sweep meets an O(log T)
+    traversal.  ~1742 world-baked triangles per instance with the
+    reference's dragon asset (k=6 ~ 62.7k tris); 20 per instance with the
+    built-in icosahedron stand-in.
     Instances reuse one mesh (the loaders dedupe), so build cost is the
     world bake, not IO."""
     s = Scene(sky=load_sky())

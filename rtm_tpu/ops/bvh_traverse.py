@@ -7,8 +7,9 @@ in world units), the per-mesh hierarchy is walked with an explicit 32-deep
 stack, ordered near/far child descent and t-pruning, and leaves test their
 triangle range in buffer order.
 
-This is NOT the TPU hot path (divergent per-ray stacks are hostile to the
-vector units — SURVEY.md hard part #1); it exists to (a) validate the SAH
+This is NOT the hot path (a lockstep traversal of all lanes does more work
+than the dense sweep at the scene sizes the repo builds — SURVEY.md hard
+part #1); it exists to (a) validate the SAH
 builder end-to-end against the dense sweep the production kernel uses, and
 (b) document the reference algorithm in runnable form.  It is vectorized
 with a lockstep `lax.while_loop` over all rays (runs until the last ray's

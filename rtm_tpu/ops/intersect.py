@@ -1,12 +1,12 @@
-"""Intersection primitives, vectorized SoA-style for TPU.
+"""Intersection primitives, vectorized SoA-style.
 
 Reference device code: sphereHit (RayTracing.shader:486-508), triangleHit
 (shader:285-303, double precision), hitBox (shader:305-318).
 
-TPU-first reformulation: instead of the shader's one-ray/one-primitive scalar
+Array reformulation: instead of the shader's one-ray/one-primitive scalar
 functions inside divergent loops, everything here is expressed as dense
 (rays x primitives) sweeps built from (N,3)@(3,T) contractions and
-elementwise ops — the shape XLA tiles onto the TPU vector/matrix units.  The
+elementwise ops, which XLA compiles as they stand.  The
 ray-triangle test uses the scalar-triple-product identity so that *all*
 ray-dependent x triangle-dependent terms are inner products of precomputed
 features (no (N,T,3) intermediates are ever materialized):
@@ -19,7 +19,8 @@ features (no (N,T,3) intermediates are ever materialized):
 
 Acceptance multiplies the shader's {t,u,v,w >= 0, det > eps} through det>0,
 avoiding divisions for rejected pairs.  The reference runs this test in f64
-(requires shaderFloat64); TPU has no fast f64, so the sweep is f32 — the
+(requires shaderFloat64); f64 is slow on the accelerator, so the sweep is
+f32 — the
 epsilon/tolerance study lives in tests/test_intersect.py against a f64
 NumPy oracle.
 """
@@ -39,10 +40,10 @@ DET_EPS = np.float32(1e-12)  # f32 stand-in for the reference's DBL_EPS gate
 def _mm(a, b):
     """Geometry matmul pinned to full f32.
 
-    On TPU the MXU's *default* matmul precision is bf16 (8 mantissa bits) —
-    catastrophic for hit distances.  Every geometric contraction in this
-    module goes through HIGHEST precision; the VPU elementwise path in the
-    Pallas kernel is f32 by construction."""
+    A default-precision f32 matmul may run in TF32 on the GPU (10 mantissa
+    bits) — catastrophic for hit distances.  Every geometric contraction
+    goes through HIGHEST precision, which is true f32; the Triton sweep
+    (ops/pallas/intersect_kernel.py) is elementwise f32 by construction."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -208,7 +209,7 @@ def nearest_triangle(origin, direction, feats: TriFeatures, chunk: int = 512):
 
 
 # ---------------------------------------------------------------------------
-# AABB (BVH traversal path + cluster culling)
+# AABB (BVH traversal path)
 # ---------------------------------------------------------------------------
 
 def aabb_hit(origin, direction, bmin, bmax):

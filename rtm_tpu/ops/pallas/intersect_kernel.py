@@ -1,27 +1,30 @@
-"""Pallas TPU kernel for the ray-triangle nearest-hit sweep.
+"""Pallas-Triton kernel for the per-bounce nearest-triangle sweep.
 
-This replaces the reference's per-thread BVH traversal + f64 triangle test
-(RayTracing.shader:324-484, 285-303) — the hot loop of the whole tracer —
-with a dense, cluster-blocked sweep shaped for the TPU vector unit:
+This is the hot loop of the tracer: every bounce searches all triangles for
+each ray's nearest hit (the reference does it per thread with a BVH and an
+f64 triangle test, RayTracing.shader:324-484, 285-303).  The plain XLA
+version, `ops.intersect.nearest_triangle`, computes the same test as five
+K=3 contractions per triangle chunk, each an (N, chunk) f32 array.  This
+kernel fuses them:
 
-  * rays live on the SUBLANE axis as (R,1) columns, triangles on the LANE
-    axis as (1,128) cluster rows -> every pairwise term is a single
-    broadcasted VPU op producing an (R,128) tile;
-  * the scalar-triple-product factoring (ops/intersect.py) means NO
-    (R,T,3)-shaped intermediates: 16 precomputed per-triangle features
-    turn the Möller-Trumbore test into mul/adds;
-  * triangles are padded into clusters of 128 with per-cluster AABBs; a
-    whole-tile conditional skips clusters no ray in the tile can improve on
-    (tile-uniform control flow — the TPU-friendly stand-in for divergent
-    per-ray traversal);
-  * the kernel returns only (t, best_index); the *differentiable* hit
-    distance and the shading attributes are recomputed outside in XLA by
-    gathering the winning triangle — the pallas sweep is a pure argmin
-    oracle, which is exactly the detached-topology treatment the autodiff
-    path needs.
+  * one program per block of RAY_BLOCK rays; the block's rays stay in
+    registers as (R,) columns;
+  * a loop over tiles of TRI_TILE triangles read from the 16-feature SoA
+    table (`pack_triangle_features`); every pair term of the
+    scalar-triple-product test (ops/intersect.py) is a broadcast f32
+    multiply-add on the CUDA cores producing an (R, TRI_TILE) tile;
+  * a running (t, idx) per ray with strict `<` across tiles and a
+    first-occurrence argmin inside a tile, so the first minimum in buffer
+    order wins, as in the reference's traversal;
+  * only (t, idx) per ray is written back.
 
-Numerics: f32 throughout (the reference needs the shaderFloat64 device
-feature; TPUs have no fast f64 — tolerance study in tests/test_intersect.py).
+The pair test is a K~10 product, too thin for the tensor cores, and TF32
+would flip the sign tests near triangle edges, so everything is exact f32.
+
+The kernel's outputs are detached from autodiff: `bounce_payload` recomputes
+the winner's hit distance differentiably from its index
+(ops/trace_ref._triangle_t_from_idx), which is the detached-topology
+convention of the gradient path (diff/params.py).
 """
 from __future__ import annotations
 
@@ -29,16 +32,16 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from ..intersect import FLT_MAX, DET_EPS
+from ..intersect import DET_EPS, FLT_MAX
 
-CLUSTER = 128            # triangles per cluster = one lane row
-DEFAULT_RAY_TILE = 256   # rays per grid step (sublane axis)
+RAY_BLOCK = 64       # rays per program (power of two)
+TRI_TILE = 32        # triangles per inner-loop step (power of two)
+NUM_WARPS = 4
 
-# feature rows in the packed (NF, C*128) array
+# feature rows of the packed (16, T') table
 _F_NX, _F_NY, _F_NZ, _F_AN = 0, 1, 2, 3
 _F_ABX, _F_ABY, _F_ABZ = 4, 5, 6
 _F_ACX, _F_ACY, _F_ACZ = 7, 8, 9
@@ -48,16 +51,15 @@ NUM_FEATURES = 16
 
 
 def pack_triangle_features(a, b, c):
-    """Precompute the 16 per-triangle features, padded to clusters of 128.
+    """The 16 per-triangle features of the pair test, padded to a whole
+    number of tiles.
 
-    a/b/c: (T,3) world-space vertices.  Returns (features (16, C*128) f32,
-    box_lo (C,3), box_hi (C,3), n_clusters) — padding triangles are
-    degenerate (zero normal => det==0 => never valid) and their cluster
-    boxes are empty (never hit).
+    a/b/c: (T,3) world-space vertices.  Returns (16, T') f32 with
+    T' = ceil(T / TRI_TILE) * TRI_TILE.  Padding triangles are degenerate:
+    zero normal, so det == 0 and they never pass `det > eps`.
     """
     t = a.shape[0]
-    c_count = max(1, -(-t // CLUSTER))
-    pad = c_count * CLUSTER - t
+    pad = max(1, -(-t // TRI_TILE)) * TRI_TILE - t
 
     def padt(x):
         return jnp.pad(x, ((0, pad), (0, 0)))
@@ -69,183 +71,105 @@ def pack_triangle_features(a, b, c):
     an = jnp.sum(a_p * n, axis=-1)
     g1 = jnp.cross(ac, a_p)
     g2 = jnp.cross(ab, a_p)
-
-    feats = jnp.stack([
+    return jnp.stack([
         n[:, 0], n[:, 1], n[:, 2], an,
         ab[:, 0], ab[:, 1], ab[:, 2],
         ac[:, 0], ac[:, 1], ac[:, 2],
         g1[:, 0], g1[:, 1], g1[:, 2],
         g2[:, 0], g2[:, 1], g2[:, 2],
-    ], axis=0)
-
-    # per-cluster AABBs over real triangles (padding -> +inf/-inf empty box)
-    verts = jnp.stack([a_p, b_p, c_p], axis=1)          # (T',3,3)
-    vmin = jnp.where(jnp.arange(c_count * CLUSTER)[:, None] < t,
-                     verts.min(axis=1), jnp.float32(np.inf))
-    vmax = jnp.where(jnp.arange(c_count * CLUSTER)[:, None] < t,
-                     verts.max(axis=1), jnp.float32(-np.inf))
-    box_lo = vmin.reshape(c_count, CLUSTER, 3).min(axis=1)
-    box_hi = vmax.reshape(c_count, CLUSTER, 3).max(axis=1)
-    return feats.astype(jnp.float32), box_lo, box_hi, c_count
+    ], axis=0).astype(jnp.float32)
 
 
-def _kernel(rays_ref, feats_ref, boxes_ref, t_ref, idx_ref, *,
-            n_clusters: int, ray_tile: int, cull: bool):
-    r = ray_tile
-    ox = rays_ref[:, 0:1]
-    oy = rays_ref[:, 1:2]
-    oz = rays_ref[:, 2:3]
-    dx = rays_ref[:, 3:4]
-    dy = rays_ref[:, 4:5]
-    dz = rays_ref[:, 5:6]
-    wx = rays_ref[:, 6:7]
-    wy = rays_ref[:, 7:8]
-    wz = rays_ref[:, 8:9]
+def _kernel(rays_ref, feats_ref, t_ref, idx_ref, *, n_tiles: int):
+    ox, oy, oz = rays_ref[0, :], rays_ref[1, :], rays_ref[2, :]
+    dx, dy, dz = rays_ref[3, :], rays_ref[4, :], rays_ref[5, :]
+    wx, wy, wz = rays_ref[6, :], rays_ref[7, :], rays_ref[8, :]
+    ox, oy, oz = ox[:, None], oy[:, None], oz[:, None]
+    dx, dy, dz = dx[:, None], dy[:, None], dz[:, None]
+    wx, wy, wz = wx[:, None], wy[:, None], wz[:, None]
+    r = ox.shape[0]
+    col = jax.lax.broadcasted_iota(jnp.int32, (r, TRI_TILE), 1)
 
-    best_t = jnp.full((r, 1), FLT_MAX, jnp.float32)
-    best_i = jnp.full((r, 1), -1, jnp.int32)
-    col = jax.lax.broadcasted_iota(jnp.int32, (1, CLUSTER), 1)
-
-    if cull:
-        # slab test of every ray against every cluster AABB: (R, C) entry t
-        inv_dx = 1.0 / dx
-        inv_dy = 1.0 / dy
-        inv_dz = 1.0 / dz
-        blox = boxes_ref[0:1, :]
-        bloy = boxes_ref[1:2, :]
-        bloz = boxes_ref[2:3, :]
-        bhix = boxes_ref[3:4, :]
-        bhiy = boxes_ref[4:5, :]
-        bhiz = boxes_ref[5:6, :]
-        t1x = (blox - ox) * inv_dx
-        t2x = (bhix - ox) * inv_dx
-        t1y = (bloy - oy) * inv_dy
-        t2y = (bhiy - oy) * inv_dy
-        t1z = (bloz - oz) * inv_dz
-        t2z = (bhiz - oz) * inv_dz
-        tnear = jnp.maximum(jnp.maximum(jnp.minimum(t1x, t2x), jnp.minimum(t1y, t2y)),
-                            jnp.minimum(t1z, t2z))
-        tfar = jnp.minimum(jnp.minimum(jnp.maximum(t1x, t2x), jnp.maximum(t1y, t2y)),
-                           jnp.maximum(t1z, t2z))
-        box_hit = (tfar >= 0.0) & (tnear <= tfar)       # (R, C)
-        box_near = jnp.where(box_hit, tnear, FLT_MAX)
-
-    def cluster_body(c, carry):
+    def tile(j, carry):
         best_t, best_i = carry
-        if isinstance(c, int):
-            lane = slice(c * CLUSTER, (c + 1) * CLUSTER)
-        else:
-            lane = pl.ds(c * CLUSTER, CLUSTER)
-        nx = feats_ref[_F_NX:_F_NX + 1, lane]
-        ny = feats_ref[_F_NY:_F_NY + 1, lane]
-        nz = feats_ref[_F_NZ:_F_NZ + 1, lane]
-        an = feats_ref[_F_AN:_F_AN + 1, lane]
-        abx = feats_ref[_F_ABX:_F_ABX + 1, lane]
-        aby = feats_ref[_F_ABY:_F_ABY + 1, lane]
-        abz = feats_ref[_F_ABZ:_F_ABZ + 1, lane]
-        acx = feats_ref[_F_ACX:_F_ACX + 1, lane]
-        acy = feats_ref[_F_ACY:_F_ACY + 1, lane]
-        acz = feats_ref[_F_ACZ:_F_ACZ + 1, lane]
-        g1x = feats_ref[_F_G1X:_F_G1X + 1, lane]
-        g1y = feats_ref[_F_G1Y:_F_G1Y + 1, lane]
-        g1z = feats_ref[_F_G1Z:_F_G1Z + 1, lane]
-        g2x = feats_ref[_F_G2X:_F_G2X + 1, lane]
-        g2y = feats_ref[_F_G2Y:_F_G2Y + 1, lane]
-        g2z = feats_ref[_F_G2Z:_F_G2Z + 1, lane]
+        lane = pl.ds(pl.multiple_of(j * TRI_TILE, TRI_TILE), TRI_TILE)
 
-        det = -(dx * nx + dy * ny + dz * nz)            # (R,128)
-        tdet = ox * nx + oy * ny + oz * nz - an
-        udet = (wx * acx + wy * acy + wz * acz) - (dx * g1x + dy * g1y + dz * g1z)
-        vdet = (dx * g2x + dy * g2y + dz * g2z) - (wx * abx + wy * aby + wz * abz)
+        def f(k):
+            return feats_ref[k, lane][None, :]
+
+        nx, ny, nz = f(_F_NX), f(_F_NY), f(_F_NZ)
+        det = -(dx * nx + dy * ny + dz * nz)                  # (R, tile)
+        tdet = ox * nx + oy * ny + oz * nz - f(_F_AN)
+        udet = ((wx * f(_F_ACX) + wy * f(_F_ACY) + wz * f(_F_ACZ))
+                - (dx * f(_F_G1X) + dy * f(_F_G1Y) + dz * f(_F_G1Z)))
+        vdet = ((dx * f(_F_G2X) + dy * f(_F_G2Y) + dz * f(_F_G2Z))
+                - (wx * f(_F_ABX) + wy * f(_F_ABY) + wz * f(_F_ABZ)))
         wdet = det - udet - vdet
         valid = ((det > DET_EPS) & (tdet >= 0.0) & (udet >= 0.0)
                  & (vdet >= 0.0) & (wdet >= 0.0))
         t = jnp.where(valid, tdet / jnp.where(valid, det, 1.0), FLT_MAX)
-        tmin = jnp.min(t, axis=1, keepdims=True)        # (R,1)
-        in_idx = jnp.min(jnp.where(t == tmin, col, jnp.int32(2**30)),
-                         axis=1, keepdims=True) + c * CLUSTER
+        tmin = jnp.min(t, axis=1)                             # (R,)
+        imin = jnp.min(jnp.where(t == tmin[:, None], col, TRI_TILE),
+                       axis=1) + j * TRI_TILE
         better = tmin < best_t
-        return (jnp.where(better, tmin, best_t),
-                jnp.where(better, in_idx.astype(jnp.int32), best_i))
+        return jnp.where(better, tmin, best_t), jnp.where(better, imin,
+                                                          best_i)
 
-    if cull:
-        # static Python unroll: Mosaic has no dynamic_slice on values, and
-        # n_clusters is small and static — each cluster gets a tile-uniform
-        # lax.cond that skips the sweep when no ray in the tile can improve
-        carry = (best_t, best_i)
-        for c in range(n_clusters):
-            improves = jnp.any(box_near[:, c:c + 1] < carry[0])
-            carry = jax.lax.cond(improves,
-                                 functools.partial(cluster_body, c),
-                                 lambda cr: cr, carry)
-        best_t, best_i = carry
-    else:
-        best_t, best_i = jax.lax.fori_loop(0, n_clusters, cluster_body,
-                                           (best_t, best_i))
-    t_ref[:, :] = best_t
-    idx_ref[:, :] = jnp.where(best_t < FLT_MAX, best_i, -1)
+    init = (jnp.full((r,), FLT_MAX, jnp.float32),
+            jnp.full((r,), -1, jnp.int32))
+    best_t, best_i = jax.lax.fori_loop(0, n_tiles, tile, init)
+    t_ref[...] = best_t
+    idx_ref[...] = jnp.where(best_t < FLT_MAX, best_i, -1)
 
 
-@functools.partial(jax.jit, static_argnames=("n_clusters", "ray_tile", "cull",
-                                             "interpret"))
-def _sweep(rays, feats, boxes, n_clusters: int, ray_tile: int, cull: bool,
-           interpret: bool):
-    n = rays.shape[0]
-    grid = n // ray_tile
-    kernel = functools.partial(_kernel, n_clusters=n_clusters,
-                               ray_tile=ray_tile, cull=cull)
-    t, idx = pl.pallas_call(
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def _sweep(rays, feats, interpret: bool):
+    n = rays.shape[1]
+    kernel = functools.partial(_kernel, n_tiles=feats.shape[1] // TRI_TILE)
+    # under shard_map the outputs vary over the same mesh axes as the rays
+    vma = jax.typeof(rays).vma | jax.typeof(feats).vma
+    return pl.pallas_call(
         kernel,
-        grid=(grid,),
+        grid=(n // RAY_BLOCK,),
         in_specs=[
-            pl.BlockSpec((ray_tile, 16), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((NUM_FEATURES, n_clusters * CLUSTER),
-                         lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, n_clusters), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((NUM_FEATURES, RAY_BLOCK), lambda i: (0, i)),
+            pl.BlockSpec(feats.shape, lambda i: (0, 0)),
         ],
-        out_specs=(
-            pl.BlockSpec((ray_tile, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ray_tile, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((n, 1), jnp.float32),
-            jax.ShapeDtypeStruct((n, 1), jnp.int32),
-        ),
+        out_specs=(pl.BlockSpec((RAY_BLOCK,), lambda i: (i,)),
+                   pl.BlockSpec((RAY_BLOCK,), lambda i: (i,))),
+        out_shape=(jax.ShapeDtypeStruct((n,), jnp.float32, vma=vma),
+                   jax.ShapeDtypeStruct((n,), jnp.int32, vma=vma)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
         interpret=interpret,
-    )(rays, feats, boxes)
-    return t[:, 0], idx[:, 0]
+        name="triangle_sweep",
+    )(rays, feats)
 
 
-def nearest_triangle_pallas(origin, direction, tri_a, tri_b, tri_c,
-                            ray_tile: int = DEFAULT_RAY_TILE,
-                            cull: bool = True, interpret: bool = False):
-    """Nearest triangle per ray via the Pallas sweep.
+def nearest_triangle_triton(origin, direction, tri_a, tri_b, tri_c, *,
+                            interpret: bool = False):
+    """Nearest triangle per ray through the Triton sweep.
 
     origin/direction: (N,3) f32.  tri_*: (T,3) world vertices.
-    Returns (t (N,), idx (N,) i32, -1 on miss).  First-min-wins tie order
-    matches buffer order (reference `<` semantics).
+    Returns (t (N,), idx (N,) i32, -1 on miss), both detached from
+    autodiff.  interpret=True runs the kernel in the Pallas interpreter,
+    for tests off the GPU.
     """
     n = origin.shape[0]
-    t_count = tri_a.shape[0]
-    if t_count == 0:
-        return (jnp.full((n,), FLT_MAX), jnp.full((n,), -1, jnp.int32))
-
-    feats, box_lo, box_hi, n_clusters = pack_triangle_features(tri_a, tri_b, tri_c)
-    # boxes packed (8, C): rows lo.xyz, hi.xyz, pad, pad
-    boxes = jnp.concatenate([box_lo.T, box_hi.T,
-                             jnp.zeros((2, n_clusters), jnp.float32)], axis=0)
-
-    w = jnp.cross(origin, direction)
-    pad = (-n) % ray_tile
-    rays = jnp.concatenate([origin, direction, w,
-                            jnp.zeros((n, 7), jnp.float32)], axis=1)
+    if tri_a.shape[0] == 0:
+        return jnp.full((n,), FLT_MAX), jnp.full((n,), -1, jnp.int32)
+    origin, direction, tri_a, tri_b, tri_c = jax.lax.stop_gradient(
+        (origin, direction, tri_a, tri_b, tri_c))
+    feats = pack_triangle_features(tri_a, tri_b, tri_c)
+    pad = (-n) % RAY_BLOCK
+    rays = jnp.concatenate([origin, direction, jnp.cross(origin, direction),
+                            jnp.zeros((n, NUM_FEATURES - 9), jnp.float32)],
+                           axis=1)
     if pad:
-        filler = jnp.zeros((pad, 16), jnp.float32).at[:, 3:6].set(1.0)
+        # filler rays from the origin along +x: they hit or miss like any
+        # ray and are cut off below
+        filler = jnp.zeros((pad, NUM_FEATURES), jnp.float32).at[:, 3].set(1.0)
         rays = jnp.concatenate([rays, filler], axis=0)
-
-    t, idx = _sweep(rays, feats, boxes, n_clusters, ray_tile, cull, interpret)
+    t, idx = _sweep(rays.T, feats, interpret)
     return t[:n], idx[:n]

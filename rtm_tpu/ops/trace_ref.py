@@ -1,7 +1,7 @@
 """The renderer: camera ray generation + progressive path tracing dispatch.
 
-This is the TPU-native re-expression of the reference's compute megakernel
-main/traceRay (RayTracing.shader:651-722): every pixel is a lane of dense
+This re-expresses the reference's compute megakernel main/traceRay
+(RayTracing.shader:651-722) as array code: every pixel is a lane of dense
 (N,...) arrays, the bounce recursion is a `lax.scan`, SIMT branch divergence
 is masked selects, and per-thread RNG streams are reproduced bit-exactly
 (ops/rng.py).  One call = one dispatch = `MaxFrames` samples per pixel,
@@ -18,7 +18,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..config import RenderConfig
 from ..models.camera import CameraSpec
@@ -26,8 +25,8 @@ from ..models.scene import TracerScene
 from . import rng
 from .intersect import (FLT_MAX, TriFeatures, _mm, dot3, nearest_sphere,
                         nearest_triangle, normalize, safe_normalize)
-from .shade import (flat_shade, sample_texture_quads, scatter,
-                    env_radiance, sphere_uv)
+from .shade import (env_radiance, flat_shade, sample_texture_quads, scatter,
+                    sphere_uv)
 
 
 def pixel_grid(width: int, height: int):
@@ -69,9 +68,9 @@ def _gather(arr, idx):
 def _triangle_t_from_idx(scene: TracerScene, origin, direction, idx):
     """Differentiable hit distance for a known winning triangle.
 
-    The Pallas sweep returns only the argmin index (detached topology); the
-    distance is recomputed here in XLA by gathering that triangle so that
-    gradients flow to ray and vertex parameters (SURVEY.md Phase 4)."""
+    The Triton sweep returns only the argmin index (detached topology);
+    the distance is recomputed here in XLA by gathering that triangle so
+    that gradients flow to ray and vertex parameters (SURVEY.md Phase 4)."""
     ti = jnp.clip(idx, 0, scene.num_triangles - 1)
     a = _gather(scene.tri_wa, ti)
     b = _gather(scene.tri_wb, ti)
@@ -82,35 +81,29 @@ def _triangle_t_from_idx(scene: TracerScene, origin, direction, idx):
     return jnp.where(idx >= 0, t, FLT_MAX)
 
 
+# nearest-triangle search per bounce: the chunked XLA sweep, or the Triton
+# kernel (ops/pallas/intersect_kernel.py); "triton_interpret" runs that
+# kernel in the Pallas interpreter and is for tests off the GPU only
+BACKENDS = ("xla", "triton", "triton_interpret")
+
+
 def bounce_payload(scene: TracerScene, feats: TriFeatures, origin, direction,
-                   chunk: int, backend: str = "xla", tri_hit=None):
+                   chunk: int, backend: str = "xla"):
     """bounceRay + closestHit (shader:510-548, 235-283) over all lanes.
 
     Returns dict of per-lane hit data. Sphere wins distance ties (the
     reference checks triangles with strict `<` after spheres).
-    backend: 'xla' (chunked scan sweep) | 'pallas' (TPU kernel) |
-    'pallas_interpret' (kernel in interpreter mode, for CPU tests).
-    tri_hit: optional precomputed (t_t, i_t) nearest-triangle result (the
-    sorted-wavefront renderer runs its own sweep kernel)."""
-    if backend not in ("xla", "pallas", "pallas_interpret"):
-        # LOUD on unknown strings: a fused-backend name (e.g. "trav")
-        # reaching this per-bounce path silently rendered through the
-        # round-1 intersect kernel in round 3 (VERDICT weak #8)
-        raise ValueError(
-            f"bounce_payload backend {backend!r} not in "
-            "('xla', 'pallas', 'pallas_interpret'); fused backends "
-            "(megakernel/wavefront2/trav) must be dispatched by "
-            "render_dispatch/render_sharded, not reach the per-bounce path")
+    backend: one of BACKENDS (the nearest-triangle search)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     t_s, i_s = nearest_sphere(origin, direction, scene.sph_pos, scene.sph_radius)
-    if tri_hit is not None:
-        t_t, i_t = tri_hit
-    elif backend == "xla" or scene.num_triangles == 0:
+    if backend == "xla" or scene.num_triangles == 0:
         t_t, i_t = nearest_triangle(origin, direction, feats, chunk=chunk)
     else:
-        from .pallas.intersect_kernel import nearest_triangle_pallas
-        _, i_t = nearest_triangle_pallas(
+        from .pallas.intersect_kernel import nearest_triangle_triton
+        _, i_t = nearest_triangle_triton(
             origin, direction, scene.tri_wa, scene.tri_wb, scene.tri_wc,
-            interpret=(backend == "pallas_interpret"))
+            interpret=(backend == "triton_interpret"))
         t_t = _triangle_t_from_idx(scene, origin, direction, i_t)
     use_tri = t_t < t_s
     t = jnp.where(use_tri, t_t, t_s)
@@ -166,183 +159,31 @@ def bounce_payload(scene: TracerScene, feats: TriFeatures, origin, direction,
     )
 
 
-# ---------------------------------------------------------------------------
-# Record-replay payload (round 5): the differentiable path for the mxu
-# forward.  The kernel emits per-(ray, bounce) packed winner identities
-# (mxu_kernel.HR_*); everything else — hit distance, normal, uv, material
-# attributes, shading, scatter — is recomputed here in XLA from the scene
-# parameters, so jax.grad flows through the whole shading/geometry graph
-# with the hit TOPOLOGY detached (the same convention as the sweep paths;
-# diff/params.py).  One wide-row gather fetches primitive + material
-# attributes together: replay cost is gather-ISSUE-bound (~10 ns/row), so
-# fewer, wider rows win (POSTPASS_r05.json micros).
-# ---------------------------------------------------------------------------
-
-# replay-table row layout (width 40)
-_RP_W = 40
-_RP_MAT = dict(albedo=slice(28, 31), emc=slice(31, 34), emp=34, rough=35,
-               metal=36, refr=37, tex=38)
-
-
-def build_replay_table(scene: TracerScene):
-    """(T + S + 1, 40) unified primitive+material rows, built from traced
-    scene arrays each step (cheap: T-row gathers into tiny tables).
-    Rows [0,T): triangles [wa wb wc normal la lab lac uv6 mat matattrs11];
-    rows [T,T+S): spheres [pos radius 0*23 mat matattrs11];
-    row T+S: the miss row (zeros, tex=-1)."""
-    mats = scene.materials
-    t_cnt = scene.num_triangles
-    s_cnt = scene.num_spheres
-
-    def matcols(ids):
-        return jnp.concatenate([
-            _gather(mats.albedo, ids),
-            _gather(mats.emission_color, ids),
-            _gather(mats.emission_power, ids)[:, None],
-            _gather(mats.roughness, ids)[:, None],
-            _gather(mats.metallic, ids)[:, None],
-            _gather(mats.refraction_ratio, ids)[:, None],
-            _gather(mats.texture_id, ids)[:, None].astype(jnp.float32),
-        ], axis=-1)                                          # (K, 11)
-
-    rows = []
-    if t_cnt > 0:
-        rows.append(jnp.concatenate([
-            scene.tri_wa, scene.tri_wb, scene.tri_wc, scene.tri_normal,
-            scene.tri_la, scene.tri_lab, scene.tri_lac,
-            scene.tri_uv.reshape(t_cnt, 6),
-            scene.tri_mat[:, None].astype(jnp.float32),
-            matcols(scene.tri_mat),
-            jnp.zeros((t_cnt, 1), jnp.float32),
-        ], axis=-1))
-    if s_cnt > 0:
-        rows.append(jnp.concatenate([
-            scene.sph_pos, scene.sph_radius[:, None],
-            jnp.zeros((s_cnt, 23), jnp.float32),
-            scene.sph_mat[:, None].astype(jnp.float32),
-            matcols(scene.sph_mat),
-            jnp.zeros((s_cnt, 1), jnp.float32),
-        ], axis=-1))
-    miss_row = jnp.zeros((1, _RP_W), jnp.float32)
-    miss_row = miss_row.at[0, _RP_MAT["tex"]].set(-1.0)
-    rows.append(miss_row)
-    return jnp.concatenate(rows, axis=0)
-
-
-def replay_payload(scene: TracerScene, rp_table, origin, direction, hr):
-    """bounce_payload's contract, but the winner comes from the packed hit
-    record `hr` instead of a sweep: topology detached, values recomputed
-    differentiably.  Returns (payload dict, mat_attrs dict)."""
-    from .pallas.mxu_kernel import HR_IDX, HR_SPH, HR_TRI
-    t_cnt = scene.num_triangles
-    s_cnt = scene.num_spheres
-    is_tri = (hr & HR_TRI) != 0
-    is_sph = (hr & HR_SPH) != 0
-    hit = is_tri | is_sph
-    idx = hr & HR_IDX
-    uidx = jnp.where(is_tri, idx,
-                     jnp.where(is_sph, t_cnt + idx, t_cnt + s_cnt))
-    uidx = jnp.clip(uidx, 0, t_cnt + s_cnt)      # defensive: corrupt hr
-    row = _gather(rp_table, uidx)                            # (N, 40)
-
-    # triangle t: plane recovery from the gathered verts (shader:274-276)
-    a = row[:, 0:3]
-    nvec_t = jnp.cross(row[:, 3:6] - a, row[:, 6:9] - a)
-    det_t = -dot3(direction, nvec_t)
-    t_t = dot3(origin - a, nvec_t) / jnp.where(det_t == 0.0, 1.0, det_t)
-    # sphere t: nearest-positive-root (shader:486-508; see sphere_hits for
-    # the gating story — the kernel already gated, records are authoritative)
-    oc = origin - row[:, 0:3]
-    aq = dot3(direction, direction)
-    bq = 2.0 * dot3(oc, direction)
-    cq = dot3(oc, oc) - row[:, 3] * row[:, 3]
-    delta = bq * bq - 4.0 * aq * cq
-    delta_safe = jnp.where(delta >= 0.0, jnp.maximum(delta, 1e-12), 1.0)
-    t_s = (-bq - jnp.sqrt(delta_safe)) / (2.0 * aq)
-
-    t = jnp.where(is_tri, t_t, jnp.where(is_sph, t_s, FLT_MAX))
-    t_safe = jnp.where(hit, t, 0.0)
-    hit_pos = origin + t_safe[:, None] * direction
-
-    s_normal = safe_normalize(hit_pos - row[:, 0:3])
-    s_u, s_v = sphere_uv(s_normal)
-    # tri UV quirk (shader:257-268): world ray against local vertices
-    la = row[:, 12:15]
-    lab = row[:, 15:18]
-    lac = row[:, 18:21]
-    ao = origin - la
-    dao = jnp.cross(ao, direction)
-    nl = jnp.cross(lab, lac)
-    det_l = -dot3(direction, nl)
-    inv_det = 1.0 / jnp.where(det_l == 0.0, 1.0, det_l)
-    u = dot3(lac, dao) * inv_det
-    v = -dot3(lab, dao) * inv_det
-    w = 1.0 - u - v
-    uvs = row[:, 21:27].reshape(-1, 3, 2)
-    t_uv = (uvs[:, 0] * w[:, None] + uvs[:, 1] * u[:, None]
-            + uvs[:, 2] * v[:, None])
-
-    is_tri3 = is_tri[:, None]
-    p = dict(
-        t=t, hit=hit, hit_pos=hit_pos,
-        normal=jnp.where(is_tri3, row[:, 9:12], s_normal),
-        u=jnp.where(is_tri, t_uv[:, 0], s_u),
-        v=jnp.where(is_tri, t_uv[:, 1], s_v),
-        mat=row[:, 27].astype(jnp.int32),
-    )
-    m = _RP_MAT
-    mat_attrs = dict(
-        albedo=row[:, m["albedo"]], emission_color=row[:, m["emc"]],
-        emission_power=row[:, m["emp"]], roughness=row[:, m["rough"]],
-        metallic=row[:, m["metal"]], refraction_ratio=row[:, m["refr"]],
-        texture_id=row[:, m["tex"]].astype(jnp.int32),
-    )
-    return p, mat_attrs
-
-
 def shade_bounce(scene: TracerScene, cfg: RenderConfig, draw_env,
-                 o, d, sd, color, contrib, alive, p, mat_attrs=None,
-                 defer_sky=False):
+                 o, d, sd, color, contrib, alive, p):
     """Sky-on-miss, emission/texture accumulation and scatter for one bounce
     given its hit payload (shader:550-649 accumulateColor/scatter +
-    :663-666 miss).  Returns the updated (o, d, sd, color, contrib, alive),
-    plus miss_now when defer_sky is set.
-    Shared by the dense scan renderer, the sorted-wavefront renderer and the
-    record-replay path (which prefetches mat_attrs in its wide-row gather
-    and defers the sky tap to one end-of-path fetch, like the fused
-    kernels' miss records).
+    :663-666 miss).  Returns the updated (o, d, sd, color, contrib, alive).
     """
     mats = scene.materials
     miss_now = alive & ~p["hit"]
-    if not defer_sky:
-        # miss -> sky (shader:663-666); quad-table row fetch.  Non-miss
-        # lanes don't consume the sample, so their direction is masked to a
-        # constant: the tap is latency-bound on RANDOM table rows, and
-        # collapsing dead lanes onto one hot row removes most of the
-        # traffic.
-        d_sky = jnp.where(miss_now[:, None], d,
-                          jnp.array([1.0, 0.0, 0.0], jnp.float32))
-        sky = env_radiance(scene, d_sky)
-        color = jnp.where(miss_now[:, None],
-                          color + sky * contrib * draw_env, color)
+    # miss -> sky (shader:663-666); quad-table row fetch.  Non-miss lanes
+    # don't consume the sample, so their direction is masked to a constant
+    # and their taps all land on one table row.
+    d_sky = jnp.where(miss_now[:, None], d,
+                      jnp.array([1.0, 0.0, 0.0], jnp.float32))
+    sky = env_radiance(scene, d_sky)
+    color = jnp.where(miss_now[:, None], color + sky * contrib * draw_env,
+                      color)
 
     live = alive & p["hit"]
-    if mat_attrs is None:
-        m_rough = _gather(mats.roughness, p["mat"])
-        m_metal = _gather(mats.metallic, p["mat"])
-        m_refr = _gather(mats.refraction_ratio, p["mat"])
-        m_albedo = _gather(mats.albedo, p["mat"])
-        m_emc = _gather(mats.emission_color, p["mat"])
-        m_emp = _gather(mats.emission_power, p["mat"])
-        m_tex = _gather(mats.texture_id, p["mat"])
-    else:
-        m_rough = mat_attrs["roughness"]
-        m_metal = mat_attrs["metallic"]
-        m_refr = mat_attrs["refraction_ratio"]
-        m_albedo = mat_attrs["albedo"]
-        m_emc = mat_attrs["emission_color"]
-        m_emp = mat_attrs["emission_power"]
-        m_tex = mat_attrs["texture_id"]
+    m_rough = _gather(mats.roughness, p["mat"])
+    m_metal = _gather(mats.metallic, p["mat"])
+    m_refr = _gather(mats.refraction_ratio, p["mat"])
+    m_albedo = _gather(mats.albedo, p["mat"])
+    m_emc = _gather(mats.emission_color, p["mat"])
+    m_emp = _gather(mats.emission_power, p["mat"])
+    m_tex = _gather(mats.texture_id, p["mat"])
 
     no, nd, nsd = scatter(o, d, sd, p["hit_pos"], p["normal"],
                           m_rough, m_metal, m_refr)
@@ -368,34 +209,22 @@ def shade_bounce(scene: TracerScene, cfg: RenderConfig, draw_env,
     o = jnp.where(live[:, None], no, o)
     d = jnp.where(live[:, None], nd, d)
     sd = jnp.where(live, nsd, sd)
-    if defer_sky:
-        return o, d, sd, color, contrib, live, miss_now
     return o, d, sd, color, contrib, live
 
 
 def render_pixels(scene: TracerScene, cam: CameraSpec, x, y, frame_index,
                   cfg: RenderConfig, chunk: int = 512, backend: str = "xla",
-                  remat: bool = False, hitrec=None):
+                  remat: bool = False):
     """Trace an arbitrary set of pixels (x, y): the core dispatch.
 
-    This is the unit both the full-frame renderer and the multi-chip
+    This is the unit both the full-frame renderer and the multi-device
     sharded renderer build on (each device traces its row band).  `remat`
     rematerializes each bounce in the backward pass instead of storing all
     per-bounce residuals — the 'long-context memory' treatment of the bounce
-    scan (SURVEY.md §5.7, hard part #3).
-
-    hitrec: optional (max_frames * max_bounces, N) i32 packed winner
-    records (mxu_kernel HR_*) — record-REPLAY mode: no sweeps; the hit
-    topology comes from the records (diff/replay design, round 5), every
-    value is recomputed differentiably, and the sky tap is deferred to one
-    end-of-path fetch per frame.  The pixel order of `hitrec` must match
-    (x, y).
+    scan (SURVEY.md §5.7, hard part #3).  backend: one of BACKENDS.
     Returns (N, 3) radiance averaged over cfg.max_frames samples.
     """
-    if hitrec is None:
-        feats = TriFeatures.build(scene.tri_wa, scene.tri_wb, scene.tri_wc)
-    else:
-        rp_table = build_replay_table(scene)
+    feats = TriFeatures.build(scene.tri_wa, scene.tri_wb, scene.tri_wc)
     focus_point, right, up, position = camera_ray_basis(cam, cfg, x, y)
     n = x.shape[0]
     frame_index = jnp.asarray(frame_index, jnp.uint32)
@@ -403,6 +232,14 @@ def render_pixels(scene: TracerScene, cam: CameraSpec, x, y, frame_index,
     draw_env = jnp.float32(1.0 if cfg.draw_environment else 0.0)
     res = jnp.array([cfg.width, cfg.height], jnp.float32)
 
+    def bounce(carry, i):
+        o, d, sd, color, contrib, alive = carry
+        sd = sd + i.astype(jnp.uint32)                          # shader:659
+        p = bounce_payload(scene, feats, o, d, chunk, backend)
+        return shade_bounce(scene, cfg, draw_env,
+                            o, d, sd, color, contrib, alive, p), None
+
+    body = jax.checkpoint(bounce) if remat else bounce
     incoming = jnp.zeros((n, 3), jnp.float32)
     for frame in range(1, cfg.max_frames + 1):
         seed = rng.pixel_seed(x, y, cfg.width, frame, frame_index)
@@ -419,202 +256,50 @@ def render_pixels(scene: TracerScene, cam: CameraSpec, x, y, frame_index,
                   + focus_jitter[:, 1:2] * up[None, :])
         direction = normalize(dev_focus - origin)
 
-        if hitrec is None:
-            def bounce(carry, i):
-                o, d, sd, color, contrib, alive = carry
-                sd = sd + i.astype(jnp.uint32)                  # shader:659
-                p = bounce_payload(scene, feats, o, d, chunk, backend)
-                return shade_bounce(scene, cfg, draw_env,
-                                    o, d, sd, color, contrib, alive,
-                                    p), None
-
-            # carries derived from varying inputs so the scan typechecks
-            # when this runs inside shard_map (axis-varying types)
-            init = (origin, direction, seed,
-                    jnp.zeros_like(origin), jnp.ones_like(origin),
-                    x == x)
-            body = jax.checkpoint(bounce) if remat else bounce
-            (o, d, sd, color, contrib, alive), _ = jax.lax.scan(
-                body, init, jnp.arange(cfg.max_bounces, dtype=jnp.uint32))
-            incoming = incoming + color
-        else:
-            def bounce(carry, xs):
-                i, hr = xs
-                (o, d, sd, color, contrib, alive,
-                 m_dir, m_ctr, m_mask) = carry
-                sd = sd + i.astype(jnp.uint32)                  # shader:659
-                p, mat_attrs = replay_payload(scene, rp_table, o, d, hr)
-                (no, nd, nsd, color, contrib, live,
-                 miss_now) = shade_bounce(
-                    scene, cfg, draw_env, o, d, sd, color, contrib, alive,
-                    p, mat_attrs=mat_attrs, defer_sky=True)
-                m_dir = jnp.where(miss_now[:, None], d, m_dir)
-                m_ctr = jnp.where(miss_now[:, None], contrib, m_ctr)
-                m_mask = m_mask | miss_now
-                return (no, nd, nsd, color, contrib, live,
-                        m_dir, m_ctr, m_mask), None
-
-            init = (origin, direction, seed,
-                    jnp.zeros_like(origin), jnp.ones_like(origin),
-                    x == x,
-                    jnp.zeros_like(origin), jnp.zeros_like(origin),
-                    x != x)
-            body = jax.checkpoint(bounce) if remat else bounce
-            rows = hitrec[(frame - 1) * cfg.max_bounces:
-                          frame * cfg.max_bounces]
-            (o, d, sd, color, contrib, alive,
-             m_dir, m_ctr, m_mask), _ = jax.lax.scan(
-                body, init,
-                (jnp.arange(cfg.max_bounces, dtype=jnp.uint32), rows))
-            # deferred sky: one tap per frame for the recorded miss lanes
-            d_sky = jnp.where(m_mask[:, None], m_dir,
-                              jnp.array([1.0, 0.0, 0.0], jnp.float32))
-            sky = env_radiance(scene, d_sky)
-            color = jnp.where(m_mask[:, None],
-                              color + sky * m_ctr * draw_env, color)
-            incoming = incoming + color
+        # carries derived from varying inputs so the scan typechecks when
+        # this runs inside shard_map (axis-varying types)
+        init = (origin, direction, seed,
+                jnp.zeros_like(origin), jnp.ones_like(origin), x == x)
+        (o, d, sd, color, contrib, alive), _ = jax.lax.scan(
+            body, init, jnp.arange(cfg.max_bounces, dtype=jnp.uint32))
+        incoming = incoming + color
 
     return incoming / jnp.float32(cfg.max_frames)               # shader:711
 
 
-def auto_backend(scene: TracerScene, platform: str) -> str:
-    """Resolve backend='auto' to the fastest KNOWN backend for this scene
-    on this platform (committed A/B evidence: BENCH_SCENES_r05.json).
-    On TPU the mxu kernel wins EVERY built-in scene once the compact
-    post-pass landed (r5: scene 1 mxu 7.2 vs mega 8.2 ms, scene 2
-    26.9 vs 28.0, scene 3 44.0 vs 94.0, scene 4 11.5 vs 44.6 — the r4
-    scene-2 megakernel edge was the dense post-pass, now gone), so auto
-    is mxu inside its table limits and trav beyond them
-    (render_dispatch itself falls further to megakernel/wavefront2 by
-    table fit).  Elsewhere: the XLA sweep."""
-    if platform != "tpu":
-        return "xla"
-    mm = scene.mxu_meta
-    if mm is not None and mm.supported:
-        return "mxu"
-    return "trav"
+def auto_backend(platform: str | None = None) -> str:
+    """The backend that backend='auto' means on `platform` (default: JAX's
+    default backend): the Triton sweep on the GPU, where it beats the XLA
+    sweep end to end (PERF.md, "Kernel decisions"); the XLA sweep
+    elsewhere."""
+    if platform is None:
+        platform = jax.default_backend()
+    return "triton" if platform in ("gpu", "cuda") else "xla"
+
+
+def resolve_backend(backend: str) -> str:
+    """'auto' -> auto_backend(); any other name must be in BACKENDS."""
+    if backend == "auto":
+        return auto_backend()
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of "
+                         f"{('auto',) + BACKENDS}")
+    return backend
 
 
 @partial(jax.jit, static_argnames=("cfg", "chunk", "backend", "remat"))
 def render_dispatch(scene: TracerScene, cam: CameraSpec, frame_index,
-                    cfg: RenderConfig, chunk: int = 512, backend: str = "xla",
-                    remat: bool = False):
+                    cfg: RenderConfig, chunk: int = 512,
+                    backend: str = "auto", remat: bool = False):
     """One full-frame dispatch (shader main :675-722, minus the
     accumulation-image I/O which lives in runtime/renderer.py).
 
     frame_index: traced uint32 scalar (1-based accumulation counter).
-    backend: 'xla' | 'pallas' | 'pallas_interpret' (see bounce_payload) |
-    'megakernel' | 'megakernel_interpret' (fully-fused forward path) |
-    'mxu' | 'mxu_interpret' (round-4 MXU brute-force pair-test kernel,
-    <=2047 triangles, falls back to trav then megakernel) |
-    'trav' | 'trav_interpret' (per-lane BVH traversal) |
-    'wavefront2' | 'wavefront2_interpret' (sorted wavefront: slim sweep
-    kernel + XLA shading — the differentiable production path); the
-    fused/wavefront paths fall back to the XLA path for the MaxBounces==1
-    flat-shade preview mode.  (The round-1 per-bounce Pallas-shading
-    'wavefront' backend was retired in round 3: three synchronized copies
-    of the bounce semantics were maintenance drag with no production
-    role; its per-bounce-kernel idea lives on in wavefront2.)
+    backend: 'auto' (see auto_backend) or one of BACKENDS.
     Returns (H, W, 3) f32 radiance averaged over cfg.max_frames samples.
     """
-    if backend.startswith("mxu") and cfg.max_bounces > 1:
-        mm = scene.mxu_meta
-        if mm is not None and mm.supported:
-            from .pallas.mxu_kernel import render_mxu
-            return render_mxu(scene, cam, frame_index, cfg,
-                              interpret=(backend == "mxu_interpret"))
-        backend = ("trav_interpret"                # table-limit fallback
-                   if backend.endswith("_interpret") else "trav")
-    if backend.startswith("trav") and cfg.max_bounces > 1:
-        tm = scene.trav_meta
-        if tm is not None and tm.supported:
-            from .pallas.trav_kernel import render_trav
-            return render_trav(scene, cam, frame_index, cfg,
-                               interpret=(backend == "trav_interpret"))
-        backend = ("megakernel_interpret"          # table-limit fallback
-                   if backend.endswith("_interpret") else "megakernel")
-    if backend.startswith("megakernel") and cfg.max_bounces > 1:
-        from .pallas.megakernel import megakernel_fits, render_megakernel
-        if megakernel_fits(scene):
-            return render_megakernel(
-                scene, cam, frame_index, cfg,
-                interpret=(backend == "megakernel_interpret"))
-        # beyond ~50k triangles the kernel's VMEM residents exceed the
-        # chip (measured: 62.7k tris -> 144M of 128M VMEM); wavefront2
-        # streams triangle chunks through its sweep grid instead
-        backend = ("wavefront2_interpret"
-                   if backend.endswith("_interpret") else "wavefront2")
-    if backend.startswith("wavefront2") and cfg.max_bounces > 1:
-        from .wavefront2 import render_wavefront2
-        return render_wavefront2(
-            scene, cam, frame_index, cfg,
-            interpret=(backend == "wavefront2_interpret"))
-    if backend.startswith(("megakernel", "wavefront", "trav", "mxu")):
-        backend = "xla"                      # flat-shade preview fallback
+    backend = resolve_backend(backend)
     x, y = pixel_grid(cfg.width, cfg.height)
     incoming = render_pixels(scene, cam, x, y, frame_index, cfg, chunk,
                              backend, remat)
     return incoming.reshape(cfg.height, cfg.width, 3)
-
-
-@partial(jax.jit, static_argnames=("cfg", "interpret", "remat"))
-def render_mxu_replay(scene: TracerScene, cam: CameraSpec, frame_index,
-                      cfg: RenderConfig, interpret: bool = False,
-                      remat: bool = True):
-    """The DIFFERENTIABLE mxu forward (round 5, VERDICT r4 task 2): the
-    mxu kernel runs once under stop_gradient to emit packed winner records,
-    and the image is reconstructed by the XLA record-replay path
-    (render_pixels(hitrec=...)) — hit topology detached, every distance /
-    normal / uv / material value recomputed from the traced scene so
-    jax.grad flows through the shading and geometry graph.  Returns
-    (H, W, 3), matching render_dispatch(backend='mxu') up to replay ulp.
-
-    Contract notes: triangle-VERTEX optimization sees the kernel's static
-    geometry tables (scene.mxu_arrays) for the hit RECORDS only — values
-    still differentiate against the live tri_verts; callers optimizing
-    vertices should rebuild the scene tables between steps
-    (models/scene.py build_tracer_scene) to refresh the detached topology.
-    """
-    from .pallas.megakernel import slots_to_image, use_block8
-    n = cfg.width * cfg.height
-    color = render_rays_mxu_replay(scene, cam, frame_index, cfg,
-                                   pixel_offset=jnp.int32(0), n_rays=n,
-                                   interpret=interpret, remat=remat)
-    if use_block8(cfg.width, cfg.height):
-        return slots_to_image(color, cfg.width, cfg.height)
-    return color.reshape(cfg.height, cfg.width, 3)
-
-
-def render_rays_mxu_replay(scene: TracerScene, cam: CameraSpec, frame_index,
-                           cfg: RenderConfig, pixel_offset, n_rays: int,
-                           interpret: bool = False, remat: bool = False):
-    """Differentiable dispatch-slot band through the record-replay path —
-    the same [pixel_offset, pixel_offset + n_rays) contract as
-    render_rays_mxu, so the sharded grad path band-dispatches it per
-    device (parallel/sharding.py).  Returns (n_rays, 3) slot radiance."""
-    mm = scene.mxu_meta
-    if mm is None or not mm.supported:
-        raise ValueError(
-            "render_mxu_replay: scene exceeds the mxu table limits "
-            "(<= 2047 triangles / <= 128 materials/textured-tris/spheres); "
-            "use backend='wavefront2' or 'xla' for gradients here")
-    if cfg.max_bounces <= 1:
-        raise ValueError(
-            "render_mxu_replay: MaxBounces==1 is the flat-shade preview — "
-            "use backend='xla' (differentiable) for it")
-    from .pallas.megakernel import slot_to_xy, use_block8
-    from .pallas.mxu_kernel import render_rays_mxu
-    frozen = jax.lax.stop_gradient(scene)
-    _, hitrec = render_rays_mxu(
-        frozen, cam, frame_index, cfg, pixel_offset=pixel_offset,
-        n_rays=n_rays, interpret=interpret, skip_postpass=True,
-        return_hitrec=True)
-    hitrec = jax.lax.stop_gradient(hitrec)
-    lin = pixel_offset + jnp.arange(n_rays, dtype=jnp.int32)
-    if use_block8(cfg.width, cfg.height):
-        x, y = slot_to_xy(lin, cfg.width)
-    else:
-        x = lin % cfg.width
-        y = lin // cfg.width
-    return render_pixels(scene, cam, x, y, frame_index, cfg,
-                         remat=remat, hitrec=hitrec)

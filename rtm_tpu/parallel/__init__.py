@@ -2,7 +2,7 @@
 
 The reference has no distributed layer at all (SURVEY.md §2.1, §5.8 — its
 only transport is single-queue Vulkan submission).  This package is the
-TPU-native replacement: shard_map data parallelism over the pixel grid,
+replacement: shard_map data parallelism over the pixel grid,
 sample-axis sharding, and psum-reduced scene-parameter gradients.
 """
 from .distributed import initialize_distributed

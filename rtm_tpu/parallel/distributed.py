@@ -22,7 +22,7 @@ def initialize_distributed(coordinator_address: str | None = None,
                            retries: int = 3, retry_delay_s: float = 5.0):
     """Initialize the jax distributed runtime (idempotent, with retry).
 
-    On single-process runs (coordinator_address None and no TPU pod env),
+    On single-process runs (coordinator_address None and no cluster env),
     this is a no-op and returns False.  Returns True once the distributed
     client is up.
     """

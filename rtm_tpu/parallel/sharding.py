@@ -1,22 +1,24 @@
-"""Multi-chip execution: pixel-grid data parallelism over a device mesh.
+"""Multi-device execution: pixel-grid data parallelism over a device mesh.
 
 The reference is a single-process, single-GPU program whose only parallelism
 is SIMT over pixels in 8x8 workgroups (ref: RayTracing.shader:13,675-679;
-Engine/src/External/Render/Vulkan/VulkanPipeline.cpp:162-168).  The TPU build
+Engine/src/External/Render/Vulkan/VulkanPipeline.cpp:162-168).  This build
 promotes that implicit axis to a first-class sharded one (SURVEY.md §2.1):
 
-  * the pixel grid is block-sharded across chips over a 1-D mesh axis "dp"
+  * the pixel grid is block-sharded across devices over a 1-D mesh axis "dp"
     (each device traces a contiguous row band);
   * the scene pytree is tiny (KB-MB) and fully replicated;
-  * forward needs NO collectives; the backward/inverse-rendering pass psums
-    scene-parameter gradients over ICI (the only cross-chip traffic);
-  * samples-per-pixel can be sharded as a second axis "sp" (each device
-    traces all pixels with a disjoint seed stream, radiance is psum-averaged)
+  * forward needs NO collectives; the backward/inverse-rendering pass sums
+    scene-parameter gradients across devices (the only cross-device
+    traffic);
+  * samples-per-pixel can be sharded instead (render_sharded_spp: each
+    device traces all pixels with a disjoint seed stream, radiance is
+    psum-averaged)
     — the analog the reference's MaxFrames loop (shader:695) scaled out.
 
 Everything here is `jax.shard_map` over `jax.sharding.Mesh`, so the same
-code runs on a real TPU slice, on multi-host via `jax.distributed`
-(see .runtime), and on the CPU fake-multichip mesh used by tests.
+code runs on the GPUs of one host, on multi-host via `jax.distributed`
+(see .distributed), and on the CPU fake-multi-device mesh used by tests.
 """
 from __future__ import annotations
 
@@ -31,10 +33,9 @@ from ..config import RenderConfig
 from ..diff.params import SceneParams, apply_params
 from ..models.camera import CameraSpec
 from ..models.scene import TracerScene
-from ..ops.trace_ref import pixel_grid, render_pixels
+from ..ops.trace_ref import pixel_grid, render_pixels, resolve_backend
 
 DP_AXIS = "dp"
-SP_AXIS = "sp"
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -65,72 +66,22 @@ def _padded_grid(cfg: RenderConfig, n_dev: int):
 @partial(jax.jit, static_argnames=("cfg", "mesh", "chunk", "backend"))
 def render_sharded(scene: TracerScene, cam: CameraSpec, frame_index,
                    cfg: RenderConfig, mesh: Mesh, chunk: int = 512,
-                   backend: str = "xla"):
+                   backend: str = "auto"):
     """One full-frame dispatch with the pixel grid sharded over mesh axis
     "dp".  Scene replicated; no collectives in the forward pass.  Returns
     (H, W, 3) f32 radiance (same contract as ops.trace_ref.render_dispatch).
     """
-    n_dev = mesh.shape[DP_AXIS]
+    backend = resolve_backend(backend)
     frame_index = jnp.asarray(frame_index, jnp.uint32)
-    n = cfg.num_pixels
-
-    if backend.startswith("mxu") and cfg.max_bounces > 1:
-        mm = scene.mxu_meta
-        if mm is None or not mm.supported:
-            backend = ("trav_interpret"
-                       if backend.endswith("_interpret") else "trav")
-    if backend.startswith("trav") and cfg.max_bounces > 1:
-        # table-limit fallback mirrors render_dispatch: unsupported scenes
-        # band-dispatch through the megakernel instead (VERDICT r3 task 4)
-        tm = scene.trav_meta
-        if tm is None or not tm.supported:
-            backend = ("megakernel_interpret"
-                       if backend.endswith("_interpret") else "megakernel")
-    if backend.startswith("megakernel") and cfg.max_bounces > 1:
-        from ..ops.pallas.megakernel import megakernel_fits
-        if not megakernel_fits(scene):
-            # VMEM ceiling (see render_dispatch): stream via wavefront2
-            backend = ("wavefront2_interpret"
-                       if backend.endswith("_interpret") else "wavefront2")
-
-    if (backend.startswith(("megakernel", "wavefront", "trav", "mxu"))
-            and cfg.max_bounces > 1):
-        # fused-kernel paths: each device runs the kernel on a contiguous
-        # dispatch-slot band (same kernel, per-band offset; slots walk 8x8
-        # pixel blocks — megakernel.slot_to_xy); the wavefront variants
-        # sort their own band locally — zero cross-device collectives
-        if backend.startswith("wavefront"):
-            from ..ops.wavefront2 import render_rays_wavefront2 as rr
-        elif backend.startswith("trav"):
-            from ..ops.pallas.trav_kernel import render_rays_trav as rr
-        elif backend.startswith("mxu"):
-            from ..ops.pallas.mxu_kernel import render_rays_mxu as rr
-        else:
-            from ..ops.pallas.megakernel import render_rays_megakernel as rr
-        from ..ops.pallas.megakernel import slots_to_image, use_block8
-        band = -(-n // n_dev)
-
-        # check_vma=False: pallas_call's out_shape carries no varying-mesh
-        # annotation, which the vma checker (rightly) cannot infer
-        @partial(jax.shard_map, mesh=mesh, in_specs=(P(), P(), P()),
-                 out_specs=P(DP_AXIS), check_vma=False)
-        def shard_mk(scene, cam, fi):
-            rank = jax.lax.axis_index(DP_AXIS)
-            return rr(
-                scene, cam, fi, cfg, pixel_offset=rank * band, n_rays=band,
-                interpret=backend.endswith("_interpret"))
-
-        out = shard_mk(scene, cam, frame_index)
-        if use_block8(cfg.width, cfg.height):
-            return slots_to_image(out[:n], cfg.width, cfg.height)
-        return out[:n].reshape(cfg.height, cfg.width, 3)
-
-    x, y, _, n = _padded_grid(cfg, n_dev)
+    x, y, _, n = _padded_grid(cfg, mesh.shape[DP_AXIS])
 
     @partial(jax.shard_map, mesh=mesh,
              in_specs=(P(), P(), P(), P(DP_AXIS), P(DP_AXIS)),
-             out_specs=P(DP_AXIS))
+             out_specs=P(DP_AXIS), check_vma=False)
     def shard_fn(scene, cam, fi, xs, ys):
+        # check_vma=False: the Pallas interpreter (the Triton sweep's test
+        # mode) cannot evaluate its kernel under shard_map's varying-axes
+        # type checks; the compiled kernel runs the same way
         return render_pixels(scene, cam, xs, ys, fi, cfg, chunk=chunk,
                              backend=backend)
 
@@ -141,13 +92,14 @@ def render_sharded(scene: TracerScene, cam: CameraSpec, frame_index,
 @partial(jax.jit, static_argnames=("cfg", "mesh", "chunk", "backend"))
 def render_sharded_spp(scene: TracerScene, cam: CameraSpec, frame_index,
                        cfg: RenderConfig, mesh: Mesh, chunk: int = 512,
-                       backend: str = "xla"):
+                       backend: str = "auto"):
     """Sample-axis sharding: every device traces the FULL pixel grid with a
     disjoint accumulation-frame seed stream (frame_index offset by device
     rank, matching the seed schedule shader:697), and radiance is
     psum-averaged.  Total samples = n_dev * cfg.max_frames.  Use when spp
     is large and the pixel grid is small (SURVEY.md §5.7).
     """
+    backend = resolve_backend(backend)
     x, y = pixel_grid(cfg.width, cfg.height)
     frame_index = jnp.asarray(frame_index, jnp.uint32)
     n_dev = mesh.shape[DP_AXIS]
@@ -176,68 +128,18 @@ def render_sharded_spp(scene: TracerScene, cam: CameraSpec, frame_index,
 def sharded_loss_and_grad(params: SceneParams, scene: TracerScene,
                           cam: CameraSpec, target, frame_index,
                           cfg: RenderConfig, mesh: Mesh, chunk: int = 512,
-                          backend: str = "xla", remat: bool = True,
+                          backend: str = "auto", remat: bool = True,
                           rebuild_tri_geometry: bool = True):
     """Distributed inverse-rendering loss+grad: pixels sharded over "dp",
-    per-device pixel-L2 partial loss and scene-parameter grads reduced with
-    a single psum over ICI (the one collective of the whole framework —
-    SURVEY.md §5.8).  Numerically identical to diff.inverse.render_loss:
-    loss = mean over (H*W*3) of squared error.
+    per-device pixel-L2 partial loss and scene-parameter grads summed
+    across devices (one all-reduce, the one collective of the whole
+    framework — SURVEY.md §5.8).  Numerically identical to
+    diff.inverse.render_loss: loss = mean over (H*W*3) of squared error.
     """
-    n_dev = mesh.shape[DP_AXIS]
+    backend = resolve_backend(backend)
     frame_index = jnp.asarray(frame_index, jnp.uint32)
-    n = cfg.num_pixels
+    x, y, mask, n = _padded_grid(cfg, mesh.shape[DP_AXIS])
     denom = jnp.float32(n * 3)
-
-    if backend.startswith(("wavefront2", "mxu")) and cfg.max_bounces > 1:
-        # the differentiable fast paths, band-dispatched per device:
-        # wavefront2 (sorted-wavefront, detached-argmin sweep custom-vjp)
-        # or mxu (record-replay: kernel hit records + XLA replay, round 5).
-        # The mxu table-limit contract is LOUD here like render_loss's —
-        # render_rays_mxu_replay raises rather than silently rerouting.
-        from ..ops.pallas.megakernel import image_to_slots, use_block8
-        if backend.startswith("mxu"):
-            from ..ops.trace_ref import render_rays_mxu_replay as rr_diff
-        else:
-            from ..ops.wavefront2 import render_rays_wavefront2 as rr_diff
-        band = -(-n // n_dev)
-        if use_block8(cfg.width, cfg.height):
-            tgt = image_to_slots(target, cfg.width, cfg.height)
-        else:
-            tgt = target.reshape(-1, 3)
-        pad = band * n_dev - n
-        if pad:
-            tgt = jnp.concatenate([tgt, jnp.zeros((pad, 3), jnp.float32)])
-        mask = (jnp.arange(band * n_dev) < n).astype(jnp.float32)
-
-        # check_vma=False is needed for the sweep pallas_call (its
-        # out_shape carries no varying-mesh annotation), and under it the
-        # psum-inside-grad pattern miscounts replicated-param cotangents
-        # (measured x n_dev) — so each device differentiates only its OWN
-        # band's partial loss and the (loss, grads) are summed outside;
-        # XLA lowers those sums to the same single ICI all-reduce.
-        @partial(jax.shard_map, mesh=mesh,
-                 in_specs=(P(), P(), P(), P(DP_AXIS), P(DP_AXIS), P()),
-                 out_specs=(P(DP_AXIS), P(DP_AXIS)), check_vma=False)
-        def shard_wf(params, scene, cam, t, m, fi):
-            rank = jax.lax.axis_index(DP_AXIS)
-
-            def local_loss(p):
-                full = apply_params(scene, p, rebuild_tri_geometry)
-                img = rr_diff(
-                    full, cam, fi, cfg, pixel_offset=rank * band,
-                    n_rays=band,
-                    interpret=backend.endswith("_interpret"))
-                return jnp.sum(m[:, None] * (img - t) ** 2) / denom
-
-            l, g = jax.value_and_grad(local_loss)(params)
-            return (l[None], jax.tree.map(lambda x: x[None], g))
-
-        losses, grads = shard_wf(params, scene, cam, tgt, mask, frame_index)
-        return (jnp.sum(losses),
-                jax.tree.map(lambda x: jnp.sum(x, axis=0), grads))
-
-    x, y, mask, n = _padded_grid(cfg, n_dev)
     tgt = target.reshape(-1, 3)
     pad = x.shape[0] - n
     if pad:
@@ -246,32 +148,36 @@ def sharded_loss_and_grad(params: SceneParams, scene: TracerScene,
     @partial(jax.shard_map, mesh=mesh,
              in_specs=(P(), P(), P(), P(DP_AXIS), P(DP_AXIS), P(DP_AXIS),
                        P(DP_AXIS), P()),
-             out_specs=(P(), P()))
+             out_specs=(P(DP_AXIS), P(DP_AXIS)), check_vma=False)
     def shard_fn(params, scene, cam, xs, ys, t, m, fi):
-        def global_loss(p):
+        def local_loss(p):
             full = apply_params(scene, p, rebuild_tri_geometry)
             img = render_pixels(full, cam, xs, ys, fi, cfg, chunk=chunk,
                                 backend=backend, remat=remat)
-            local = jnp.sum(m[:, None] * (img - t) ** 2) / denom
-            # psum INSIDE the differentiated function: its transpose
-            # correctly reduces the replicated-parameter cotangents across
-            # devices (an extra explicit psum on grads would double-count)
-            return jax.lax.psum(local, DP_AXIS)
+            return jnp.sum(m[:, None] * (img - t) ** 2) / denom
 
-        return jax.value_and_grad(global_loss)(params)
+        # each device differentiates its own band's partial loss; the
+        # (loss, grads) are summed outside, which XLA lowers to one
+        # all-reduce.  (Under check_vma=False, as in render_sharded, a psum
+        # inside the differentiated function would count the replicated-
+        # parameter cotangents n_dev times.)
+        l, g = jax.value_and_grad(local_loss)(params)
+        return l[None], jax.tree.map(lambda x: x[None], g)
 
-    return shard_fn(params, scene, cam, x, y, tgt, mask, frame_index)
+    losses, grads = shard_fn(params, scene, cam, x, y, tgt, mask,
+                             frame_index)
+    return (jnp.sum(losses),
+            jax.tree.map(lambda x: jnp.sum(x, axis=0), grads))
 
 
 def make_train_step(scene: TracerScene, cam: CameraSpec, target,
                     cfg: RenderConfig, mesh: Mesh, optimizer,
-                    chunk: int = 512, backend: str = "xla",
+                    chunk: int = 512, backend: str = "auto",
                     remat: bool = True, rebuild_tri_geometry: bool = True):
-    """Build the jitted multi-chip inverse-rendering train step:
+    """Build the jitted multi-device inverse-rendering train step:
     (params, opt_state, frame_index) -> (params, opt_state, loss).
 
-    This is the full production training step the driver dry-runs over an
-    n-device mesh (__graft_entry__.dryrun_multichip).
+    __graft_entry__.dryrun_multichip runs this step over an n-device mesh.
     """
     import optax
 

@@ -1,6 +1,6 @@
 """Scene editor — runtime CRUD over materials/spheres/meshes/instances.
 
-This is the headless-TPU realization of the reference's ImGui scene editor
+This is the headless realization of the reference's ImGui scene editor
 (RayTracing/src/RayTracing.cpp:164-463): the panels there mutate the host
 scene and then either
 

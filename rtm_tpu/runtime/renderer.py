@@ -13,8 +13,8 @@ frameIndex advances only while accumulation is enabled, and resets to 1 on
 camera moves / resizes / scene edits (RayTracing.cpp:81,91-95,625) — here via
 `reset()`.  The whole step (dispatch + accumulate) is one jitted function, so
 progressive rendering runs entirely on-device with the accumulation buffer
-donated between steps (the TPU analog of the reference's persistent RGBA32F
-accumulation image).
+donated between steps (the device-side analog of the reference's persistent
+RGBA32F accumulation image).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ def accumulate_step(scene: TracerScene, cam: CameraSpec, accum, frame_index,
 
 @partial(jax.jit, static_argnames=("cfg", "backend"))
 def render_progressive(scene: TracerScene, cam: CameraSpec, cfg: RenderConfig,
-                       frames, backend: str = "xla"):
+                       frames, backend: str = "auto"):
     """Fully on-device progressive render: `frames` accumulation dispatches
     in one jit (a fori_loop over frame_index), returning the converged
     display image.  This is the production/bench path — one host round-trip
@@ -120,7 +120,7 @@ class ProgressiveRenderer:
         """Dispatch one frame WITHOUT blocking: returns the device array
         immediately (JAX dispatch is asynchronous), so the host can do
         other work — event handling, encoding the previous frame — while
-        the chip renders.  This is the TPU analog of the reference's two
+        the device renders.  This is the analog of the reference's two
         frames in flight (Swapchain double buffering, Utils/Constants.h:7
         + Swapchain.cpp:56-115): the viewer encodes frame N while frame
         N+1 is on the device (SURVEY §2.1 P-PP)."""

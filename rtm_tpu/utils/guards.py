@@ -1,4 +1,4 @@
-"""Numeric guards: the TPU analog of the reference's Vulkan validation
+"""Numeric guards: the analog of the reference's Vulkan validation
 layers (SURVEY.md §5.2 — Debug.h:16-21 VK_LAYER_KHRONOS_validation +
 CHECK_VK on every call).
 
@@ -11,8 +11,7 @@ remains is numeric: NaN/Inf escaping a kernel.  Two opt-in oracles:
     the full XLA render graph: every primitive is instrumented and the
     FIRST offending op is reported (the validation-layer experience).
     XLA backend only — checkify has no rules for Pallas kernels; the
-    fused backends are covered by the output check + their interpret-mode
-    test oracles.
+    Triton sweep is covered by the output check + its interpreter tests.
 
 Wire-up: `python -m rtm_tpu render --check-nans`, or call directly.
 """
@@ -37,12 +36,12 @@ def checked_render_dispatch(scene, cam, frame_index, cfg, **kw):
 
     from ..ops.trace_ref import render_dispatch
 
-    backend = kw.get("backend", "xla")
-    if not backend.startswith("xla"):
+    backend = kw.setdefault("backend", "xla")
+    if backend != "xla":
         raise ValueError(
-            "checked_render_dispatch instruments the XLA graph; Pallas "
-            f"backends ({backend!r}) are covered by assert_image_finite "
-            "and their interpret-mode oracles")
+            "checked_render_dispatch instruments the XLA graph; the Triton "
+            f"sweep ({backend!r}) is covered by assert_image_finite and its "
+            "interpreter tests")
 
     def f(s, c, i):
         return render_dispatch(s, c, i, cfg, **kw)

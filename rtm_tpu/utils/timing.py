@@ -2,7 +2,7 @@
 
 Parity with ``RT::Timer`` (ref: Engine/src/Engine/Core/Time.h:12-30): the
 reference wraps the app frame and GPU submit path in a ns-resolution timer and
-reports ms floats.  On TPU, wall-clock measurement must bracket
+reports ms floats.  On an accelerator, wall-clock measurement must bracket
 ``jax.block_until_ready`` to include device time (async dispatch otherwise
 returns immediately).
 """
@@ -28,7 +28,7 @@ class Timer:
 def device_timed_ms(fn, *args, warmup: int = 1, iters: int = 10):
     """Run `fn(*args)` with block_until_ready, return (mean_ms, last_result).
 
-    This is the TPU analog of the reference's GPU-time measurement that wraps
+    This is the analog of the reference's GPU-time measurement that wraps
     beginFrame..endFrame (ref: RayTracing/src/RayTracing.cpp:505-518).
     """
     result = None

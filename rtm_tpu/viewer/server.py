@@ -1,9 +1,9 @@
-"""Interactive progressive viewer — the TPU-native stand-in for the
+"""Interactive progressive viewer — the headless stand-in for the
 reference's GLFW/ImGui window (SURVEY C5, C26).
 
 The reference runs a windowed loop: poll input -> translate to events ->
 camera controller -> reset accumulation on movement -> dispatch -> present
-(Application.cpp:44-68, RayTracing.cpp:501-628).  Headless TPU hosts have
+(Application.cpp:44-68, RayTracing.cpp:501-628).  Headless GPU hosts have
 no display, so the window is a browser page served by a dependency-free
 stdlib HTTP server:
 

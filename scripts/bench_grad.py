@@ -1,13 +1,9 @@
 """fwd+bwd throughput at the headline config (BASELINE.md row 2).
 
-Times jax.value_and_grad of the pixel-L2 loss through the differentiable
-production path (wavefront2: slim Pallas sweep oracle + XLA shading,
-detached hit topology) and the forward-only pass, on the current device.
-Emits JSON lines and writes BENCH_GRAD_r{N}.json when RTM_BENCH_ROUND is
-set.  Includes a speed-of-light note: the backward bounce scan re-runs the
-sweep per bounce (remat) and adds gather-transposes (scatter-adds) for
-every texture/sky tap — the measured fwd:bwd ratio is the honest
-remat+scatter overhead.
+Times the forward dispatch, the pixel-L2 loss and jax.value_and_grad of
+that loss through the differentiable path (nearest-hit search by
+RTM_BENCH_BACKEND: auto, xla or triton; detached hit topology, per-bounce
+remat) on the current device, and prints one JSON line per measurement.
 
 Run: python scripts/bench_grad.py [res] [bounces]
 """
@@ -20,39 +16,32 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-if os.environ.get("RTM_BENCH_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["RTM_BENCH_PLATFORM"])
-jax.config.update("jax_compilation_cache_dir", "/tmp/rtm_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
 
 from rtm_tpu import Camera, RenderConfig, build_tracer_scene, load_scene  # noqa: E402
 from rtm_tpu.diff.inverse import loss_and_grad, render_loss  # noqa: E402
 from rtm_tpu.diff.params import extract_params  # noqa: E402
-from rtm_tpu.ops.trace_ref import render_dispatch  # noqa: E402
+from rtm_tpu.ops.trace_ref import render_dispatch, resolve_backend  # noqa: E402
+from rtm_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
 
 def timeit(f, *args, reps=8):
     t0 = time.perf_counter()
-    out = f(*args)
-    _ = float(np.asarray(jax.tree.leaves(out)[0]).ravel()[0])
+    jax.block_until_ready(f(*args))
     comp = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(reps):
         out = f(*args)
     jax.block_until_ready(out)
-    _ = float(np.asarray(jax.tree.leaves(out)[0]).ravel()[0])
     return (time.perf_counter() - t0) / reps, comp
 
 
 def main():
+    enable_compile_cache()
     res = int(sys.argv[1]) if len(sys.argv) > 1 else 512
     bounces = int(sys.argv[2]) if len(sys.argv) > 2 else 8
-    backend = os.environ.get("RTM_BENCH_BACKEND", "wavefront2")
+    backend = resolve_backend(os.environ.get("RTM_BENCH_BACKEND", "auto"))
     cfg = RenderConfig(width=res, height=res, max_bounces=bounces,
                        max_frames=1, draw_environment=True)
     cam = Camera().spec(res, res)
@@ -60,86 +49,27 @@ def main():
     params = extract_params(scene)
     target = jnp.full((res, res, 3), 0.3, jnp.float32)
     rays = res * res * bounces
-
-    rows = []
+    device = jax.devices()[0]
 
     def emit(name, dt, comp):
-        row = {"metric": name, "ms": round(dt * 1e3, 2),
-               "grays_per_s": round(rays / dt / 1e9, 4),
-               "compile_s": round(comp, 1), "backend": backend,
-               "config": f"scene3 {res}x{res} x{bounces} bounces"}
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        print(json.dumps({
+            "metric": name, "ms": round(dt * 1e3, 3),
+            "grays_per_s": round(rays / dt / 1e9, 4),
+            "compile_s": round(comp, 1), "backend": backend,
+            "device": f"{device.platform}:{device.device_kind}",
+            "config": f"scene3 {res}x{res} x{bounces} bounces"}), flush=True)
 
-    # forward only (same renderer the grad path differentiates)
-    dt, comp = timeit(
+    emit("fwd", *timeit(
         lambda fi: render_dispatch(scene, cam, fi, cfg, backend=backend),
-        jnp.uint32(1))
-    emit("fwd", dt, comp)
-
-    # bands > 1 scans the loss over dispatch-slot bands: ONE band's
-    # fwd+bwd graph compiles instead of the whole frame (the r3 512^2
-    # compile-window blocker; numerically identical partial L2 sums)
-    bands = int(os.environ.get("RTM_GRAD_BANDS", 8 if res >= 512 else 1))
-    remat = True
-    if backend.startswith("mxu"):
-        bands = 1        # the record-replay path is monolithic (no sweep
-        #                  in its graph, so the r3 compile blocker is gone)
-        remat = False    # measured: storing the replay residuals beats
-        #                  recomputing bounces (183 -> 138 ms fwd+bwd);
-        #                  the graph is gather-bound, not memory-bound
-
-    # forward value through the loss (adds target diff; sanity row)
-    dt, comp = timeit(
+        jnp.uint32(1)))
+    emit("fwd_loss", *timeit(
         lambda fi: render_loss(params, scene, cam, target, fi, cfg,
-                               backend, remat, False, soft_tau=0.0,
-                               bands=bands),
-        jnp.uint32(1))
-    emit(f"fwd_loss(bands={bands})", dt, comp)
-
-    # fwd+bwd
-    dt, comp = timeit(
+                               backend, True, False),
+        jnp.uint32(1)))
+    emit("fwd_bwd", *timeit(
         lambda fi: loss_and_grad(params, scene, cam, target, fi, cfg,
-                                 backend, remat, False, soft_tau=0.0,
-                                 bands=bands),
-        jnp.uint32(2))
-    emit(f"fwd_bwd(bands={bands})", dt, comp)
-
-    ratio = rows[2]["ms"] / rows[1]["ms"]
-    if backend.startswith("mxu"):
-        note = (
-            f"fwd_bwd/fwd_loss = {ratio:.2f}x through the round-5 "
-            f"record-replay path (VERDICT r4 task 2): the mxu kernel "
-            f"runs once under stop_gradient to emit packed winner "
-            f"records, and jax.grad differentiates the XLA replay "
-            f"(one wide-row unified primitive+material gather per "
-            f"bounce, deferred sky, detached topology).  remat=False "
-            f"(the replay graph is gather-bound, not memory-bound: "
-            f"storing residuals measured 138 vs 183 ms).  vs round 4's "
-            f"banded wavefront2 fwd+bwd 427.9 ms: 3.1x.  Gradient "
-            f"parity with the xla backend and FD checks: "
-            f"tests/test_grad.py mxu_* rows.")
-    else:
-        note = (f"fwd_bwd/fwd_loss = {ratio:.2f}x (same banded evaluation): "
-            f"the backward bounce scan remats the sweep per bounce and "
-            f"transposes every texture/sky gather into scatter-adds over "
-            f"the {res}x{res} grid; a pure-FLOP speed-of-light bwd would "
-            f"be ~2x fwd, so the measured ratio is UNDER the remat bound "
-            f"(the reverse pass reuses the forward's sweep oracle). "
-            f"Banding itself is also a runtime win: the banded forward "
-            f"loss beats the monolithic forward dispatch (working-set "
-            f"locality), and the fwd+bwd graph now compiles in under a "
-            f"minute where the monolithic 512^2 graph exceeded the "
-            f"10-minute remote window (VERDICT r3 task 7).")
-    print("# " + note, flush=True)
-    rnd = os.environ.get("RTM_BENCH_ROUND")
-    if rnd:
-        out = {"rows": rows, "note": note}
-        path = os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), f"BENCH_GRAD_r{rnd}.json")
-        with open(path, "w") as f:
-            json.dump(out, f, indent=1)
-        print(f"# wrote {path}", flush=True)
+                                 backend, True, False),
+        jnp.uint32(2)))
 
 
 if __name__ == "__main__":

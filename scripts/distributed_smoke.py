@@ -5,9 +5,9 @@ worker processes, each with 4 virtual CPU devices, forms the 8-device
 global mesh, and runs (a) a cross-process psum and (b) one sharded render
 step over the global mesh, asserting both.
 
-This is the multi-host bring-up path (SURVEY.md §5.8) that a TPU pod uses
-— same code, bigger mesh; only the transport differs (gRPC here, ICI/DCN
-there).
+This is the multi-host bring-up path (SURVEY.md §5.8) that a multi-host
+cluster uses — same code, bigger mesh; only the transport differs (gRPC
+here, NCCL between GPUs).
 
 Run: python scripts/distributed_smoke.py            (parent; spawns workers)
 """

@@ -5,9 +5,10 @@ Weak scaling: each device always traces the same per-device pixel band
 (BAND rows of a WIDTH-wide frame), so the global frame grows with the
 mesh.  Efficiency(n) = rays_per_s(n) / (n * rays_per_s(1)).
 
-On this machine the mesh is the virtual CPU fake-multichip (8 devices via
-xla_force_host_platform_device_count — tests/conftest.py pattern); on a
-real slice the same script measures chip scaling.  Emits a CSV
+By default the mesh is the virtual CPU fake-multi-device mesh (8 devices
+via xla_force_host_platform_device_count — tests/conftest.py pattern);
+with RTM_SCALING_PLATFORM set to another platform the same script measures
+device scaling.  Emits a CSV
 (devices,rays_per_s,efficiency) to stdout and --out.
 
 Usage: python scripts/scaling.py [--out SCALING.csv] [--band 64]
@@ -31,14 +32,15 @@ import jax  # noqa: E402
 
 if os.environ.get("RTM_SCALING_PLATFORM", "cpu") == "cpu":
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/rtm_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from rtm_tpu import Camera, RenderConfig, build_tracer_scene, load_scene  # noqa: E402
 from rtm_tpu.parallel.sharding import make_mesh, render_sharded  # noqa: E402
+from rtm_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def count_collectives(hlo_text: str) -> dict:
@@ -56,7 +58,7 @@ def single_core_probe(args) -> float:
     CSV normalized by an assumed ceiling min(n,cores)/n against an n=1
     baseline that ALREADY used every core through XLA CPU *intra-op*
     parallelism — which made healthy flat weak-scaling read as a 46%
-    loss (VERDICT r2 weak #4).  This probe measures what one core
+    loss.  This probe measures what one core
     actually delivers, so ceiling(n) = min(n, cores) * S1."""
     cfg = RenderConfig(width=args.width, height=args.band,
                        max_bounces=args.bounces, max_frames=1,
@@ -141,7 +143,7 @@ def run_multiprocess(args, n_cores: int, s1: float | None):
     # collectives) as the n=4 virtual row, but scheduled 2 devices per
     # pinned core — if it reaches the 2-core ceiling, the n=4 virtual-mesh
     # shortfall is XLA-CPU-client serialization (testbed), not framework
-    # overhead (VERDICT r3 task 8).
+    # overhead.
     configs = [(c, 1) for c in (1, 2, 4, 8) if c <= n_cores]
     if n_cores >= 2:
         configs.append((2, 2))
@@ -297,7 +299,7 @@ def main() -> int:
     # headline CSV: rows the hardware can actually parallelize (virtual
     # rows with n <= physical cores + every real multiprocess row); the
     # testbed-bound n > cores virtual rows go to the diagnostics file with
-    # the root cause (VERDICT r4 weak #8)
+    # the root cause
     head_rows = [r for r in rows if r[0] <= n_cores]
     diag_rows = [r for r in rows if r[0] > n_cores]
     with open(args.out, "w") as f:
@@ -327,7 +329,7 @@ def main() -> int:
         diag = os.path.splitext(args.out)[0] + "_diag.csv"
         with open(diag, "w") as f:
             f.write("# TESTBED-BOUND diagnostics: virtual-mesh rows with "
-                    "n > physical cores.  Root cause (VERDICT r3 task 8): "
+                    "n > physical cores.  Root cause: "
                     "the XLA CPU client serializes virtual-device "
                     "execution, so these rows measure core "
                     "oversubscription, not framework scaling — the pinned "

@@ -1,4 +1,4 @@
-"""Multi-chip sharding tests on the fake 8-device CPU mesh (SURVEY.md §4(d)).
+"""Multi-device sharding tests on the fake 8-device CPU mesh (SURVEY.md §4(d)).
 
 Oracle: the sharded renderer / sharded loss+grad must be numerically
 identical (same seeds, same math, just different device placement) to the
@@ -104,8 +104,9 @@ def test_train_step_descends(setup):
 
 
 def test_graft_entry_dryrun():
+    import pathlib
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
     import __graft_entry__ as ge
     fn, args = ge.entry()
     out = jax.jit(fn)(*args)
@@ -114,71 +115,9 @@ def test_graft_entry_dryrun():
     ge.dryrun_multichip(8)
 
 
-def test_render_sharded_megakernel_matches(setup, image_compare):
-    """Sharded megakernel bands (per-device pixel offsets) == full-frame."""
-    scene, cam = setup
-    mesh = make_mesh(4)
-    ref = render_dispatch(scene, cam, jnp.uint32(1), CFG, backend="xla")
-    out = render_sharded(scene, cam, jnp.uint32(1), CFG, mesh,
-                         backend="megakernel_interpret")
-    image_compare(np.asarray(ref), np.asarray(out))
-
-
-def test_render_sharded_wavefront_matches(setup, image_compare):
-    """Sharded wavefront2 bands (per-device sort + pixel offsets) ==
-    full-frame; the per-band sorting must not leak across devices."""
-    scene, cam = setup
-    mesh = make_mesh(4)
-    ref = render_dispatch(scene, cam, jnp.uint32(1), CFG, backend="xla")
-    out = render_sharded(scene, cam, jnp.uint32(1), CFG, mesh,
-                         backend="wavefront2_interpret")
-    image_compare(np.asarray(ref), np.asarray(out))
-
-
-def test_sharded_wavefront2_grads_match_single_device(image_compare):
-    """The differentiable FAST path, sharded: per-device slot bands through
-    the sorted-wavefront renderer with psum'd scene-parameter grads must
-    match the single-device XLA loss+grad (VERDICT r2 task 3)."""
-    cfg = RenderConfig(width=16, height=16, max_bounces=3, max_frames=1,
-                       draw_environment=True)
-    scene = build_tracer_scene(load_scene(2))
-    cam = Camera().spec(cfg.width, cfg.height)
-    mesh = make_mesh(4)
-    params = extract_params(scene)
-    target = jnp.full((cfg.height, cfg.width, 3), 0.3, jnp.float32)
-
-    l_ref, g_ref = loss_and_grad(params, scene, cam, target, jnp.uint32(1),
-                                 cfg, "xla", False, False)
-    l_sh, g_sh = sharded_loss_and_grad(params, scene, cam, target,
-                                       jnp.uint32(1), cfg, mesh,
-                                       backend="wavefront2_interpret",
-                                       remat=False,
-                                       rebuild_tri_geometry=False)
-    np.testing.assert_allclose(float(l_sh), float(l_ref), rtol=1e-4)
-    for a, b in zip(jax.tree.leaves(g_sh), jax.tree.leaves(g_ref)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=3e-4, atol=2e-6)
-
-
-def test_render_sharded_trav_matches(image_compare):
-    """Sharded trav bands (per-device pixel offsets through the per-lane
-    traversal kernel) == full-frame XLA (VERDICT r3 task 4: the trav
-    backend silently fell through to the round-1 intersect path)."""
-    cfg = RenderConfig(width=16, height=16, max_bounces=3, max_frames=1,
-                       draw_environment=True)
-    scene = build_tracer_scene(load_scene(2))
-    assert scene.trav_meta is not None and scene.trav_meta.supported
-    cam = Camera().spec(cfg.width, cfg.height)
-    mesh = make_mesh(4)
-    ref = render_dispatch(scene, cam, jnp.uint32(1), cfg, backend="xla")
-    out = render_sharded(scene, cam, jnp.uint32(1), cfg, mesh,
-                         backend="trav_interpret")
-    image_compare(np.asarray(ref), np.asarray(out))
-
-
 def test_render_sharded_unknown_backend_raises(setup):
     """Unrecognized backend strings must be LOUD, not silently routed to
-    the round-1 pallas intersect path (VERDICT r3 weak #8)."""
+    another path."""
     scene, cam = setup
     mesh = make_mesh(2)
     with pytest.raises(ValueError, match="backend"):
@@ -186,34 +125,9 @@ def test_render_sharded_unknown_backend_raises(setup):
                        backend="bogus")
 
 
-def test_sharded_mxu_replay_grads_match_single_device():
-    """The round-5 record-replay grad path, sharded: per-device slot bands
-    (kernel hit records + XLA replay) with grads summed across bands must
-    match the single-device XLA loss+grad."""
-    cfg = RenderConfig(width=16, height=16, max_bounces=3, max_frames=1,
-                       draw_environment=True)
-    scene = build_tracer_scene(load_scene(2))
-    cam = Camera().spec(cfg.width, cfg.height)
-    mesh = make_mesh(4)
-    params = extract_params(scene)
-    target = jnp.full((cfg.height, cfg.width, 3), 0.3, jnp.float32)
-
-    l_ref, g_ref = loss_and_grad(params, scene, cam, target, jnp.uint32(1),
-                                 cfg, "xla", False, False)
-    l_sh, g_sh = sharded_loss_and_grad(params, scene, cam, target,
-                                       jnp.uint32(1), cfg, mesh,
-                                       backend="mxu_interpret",
-                                       remat=False,
-                                       rebuild_tri_geometry=False)
-    np.testing.assert_allclose(float(l_sh), float(l_ref), rtol=1e-4)
-    for a, b in zip(jax.tree.leaves(g_sh), jax.tree.leaves(g_ref)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=3e-4, atol=2e-6)
-
-
 def test_sharded_grads_not_double_counted():
-    """Pin the psum-double-count failure mode EXPLICITLY (VERDICT r4 weak
-    #6): under check_vma=False the naive psum-inside-grad pattern measured
+    """Pin the psum-double-count failure mode EXPLICITLY: under
+    check_vma=False the naive psum-inside-grad pattern measured
     replicated-parameter cotangents x n_dev; the committed
     differentiate-per-band-then-sum-outside form must yield grads whose
     scale matches single-device — a 4x-scaled gradient (what the naive
@@ -228,7 +142,7 @@ def test_sharded_grads_not_double_counted():
     target = jnp.full((cfg.height, cfg.width, 3), 0.3, jnp.float32)
     _, g_ref = loss_and_grad(params, scene, cam, target, jnp.uint32(1),
                              cfg, "xla", False, False)
-    for be in ("wavefront2_interpret", "mxu_interpret"):
+    for be in ("xla", "triton_interpret"):
         _, g_sh = sharded_loss_and_grad(params, scene, cam, target,
                                         jnp.uint32(1), cfg, mesh,
                                         backend=be, remat=False,

@@ -201,30 +201,3 @@ def test_procedural_sun_sky_env():
     img_map = np.asarray(render_dispatch(scene_map, cam, jnp.uint32(1),
                                          cfg, backend="xla"))
     assert not np.allclose(img, img_map)
-
-
-def test_auto_backend_resolution():
-    """auto resolves per scene/platform (BENCH_SCENES_r05 evidence)."""
-    from rtm_tpu import build_tracer_scene, load_scene
-    from rtm_tpu.models.scenes import dragon_grid
-    from rtm_tpu.ops.trace_ref import auto_backend
-
-    s3 = build_tracer_scene(load_scene(3))
-    assert auto_backend(s3, "tpu") == "mxu"
-    assert auto_backend(s3, "cpu") == "xla"
-    big = build_tracer_scene(dragon_grid(6))
-    assert big.mxu_meta is None or not big.mxu_meta.supported
-    assert auto_backend(big, "tpu") == "trav"
-
-
-def test_megakernel_fits_vmem_guard():
-    """megakernel_fits: True for every built-in scene, False beyond the
-    measured 128MB VMEM ceiling (62.7k-tri dragon grid, the anchor in
-    BENCH_BIGSCENE_r05.json)."""
-    from rtm_tpu import build_tracer_scene, load_scene
-    from rtm_tpu.models.scenes import dragon_grid
-    from rtm_tpu.ops.pallas.megakernel import megakernel_fits
-
-    for sid in (1, 2, 3, 4):
-        assert megakernel_fits(build_tracer_scene(load_scene(sid))), sid
-    assert not megakernel_fits(build_tracer_scene(dragon_grid(6)))

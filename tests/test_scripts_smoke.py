@@ -1,31 +1,38 @@
 """Scripts tripwire: parse + main guard + SIGNATURE PINNING.
 
-The round-2 review found scripts/profile_breakdown.py crashing against a
-drifted kernel API — a runtime TypeError that `ast.parse` cannot see
-(VERDICT r3 weak #5).  This test resolves every call a script makes into
-an `rtm_tpu` function and validates the call's keyword/positional
+A script that calls a drifted API fails only when it runs — a TypeError
+that `ast.parse` cannot see.  This test resolves every call a script makes
+into an `rtm_tpu` function and validates the call's keyword/positional
 arguments against the LIVE `inspect.signature`, so deleting or renaming a
-public kernel kwarg breaks the suite without running the scripts (full
-runs stay manual, on hardware).
+public kwarg breaks the suite without running the scripts (full runs stay
+manual, on hardware).  The scripts are scripts/*.py and the entry scripts
+at the repository root.
 """
 import ast
 import importlib
 import inspect
 import pathlib
 
-SCRIPTS = pathlib.Path(__file__).resolve().parent.parent / "scripts"
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SCRIPTS = ROOT / "scripts"
+
+
+def _script_files():
+    return sorted(SCRIPTS.glob("*.py")) + [
+        ROOT / name for name in ("bench.py", "chip_smoke.py",
+                                 "__graft_entry__.py")]
 
 
 def test_scripts_parse_and_have_main_guard():
     assert SCRIPTS.is_dir()
     checked = 0
-    for f in sorted(SCRIPTS.glob("*.py")):
+    for f in _script_files():
         src = f.read_text()
         tree = ast.parse(src, filename=str(f))   # raises on syntax error
         assert "__main__" in src, f"{f.name} has no main guard"
         assert tree.body, f.name
         checked += 1
-    assert checked >= 10
+    assert checked >= 6
 
 
 def _imported_rtm_symbols(tree):
@@ -67,7 +74,7 @@ def _resolve(func_node, symbols):
 def test_script_calls_match_live_signatures():
     problems = []
     checked_calls = 0
-    for f in sorted(SCRIPTS.glob("*.py")):
+    for f in _script_files():
         tree = ast.parse(f.read_text(), filename=str(f))
         symbols = _imported_rtm_symbols(tree)
         if not symbols:
@@ -111,5 +118,5 @@ def test_script_calls_match_live_signatures():
                         f"takes <= {max_pos} positional args, "
                         f"call passes {len(node.args)}")
     assert not problems, "\n".join(problems)
-    # the tripwire must actually cover the kernel entry points
-    assert checked_calls >= 30, checked_calls
+    # the tripwire must actually cover the entry points
+    assert checked_calls >= 80, checked_calls

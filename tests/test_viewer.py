@@ -94,15 +94,6 @@ def test_app_close_event():
     assert closed == [1]
 
 
-def test_roofline_estimate():
-    from rtm_tpu.bench.profile import megakernel_roofline
-    r = megakernel_roofline(RenderConfig(width=512, height=512,
-                                         max_bounces=8, max_frames=1),
-                            num_triangles=1756)
-    assert 0 < r["expected_ms_per_frame"] < 10_000
-    assert r["ceiling_grays_per_sec"] > 0
-
-
 def test_viewer_settings_parity(server):
     """Settings-panel round trip (ref RayTracing.cpp:73-150): slider edits
     apply without resetting accumulation; Reset and camera edits reset."""
